@@ -24,3 +24,8 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def devices():
     return jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs the hand-written CUDA kernels; skips without a card")

@@ -1,0 +1,155 @@
+"""Lightweight hierarchical config tree (yacs-compatible surface).
+
+Counterpart of ``vgqa_tpu/config/node.py`` with the same keys and behaviour.
+PyYAML is imported only inside the methods that parse or emit YAML, so the
+default config builds on a host without it:
+
+    cfg.MODEL.VSTG.HIDDEN            # attribute access
+    cfg.merge_from_file("x.yaml")    # YAML overlay
+    cfg.merge_from_list(["SOLVER.BASE_LR", "1e-4"])
+    cfg.freeze() / cfg.defrost() / cfg.clone() / cfg.dump()
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, List
+
+_VALID_SCALARS = (int, float, bool, str, type(None), tuple, list)
+
+
+class CfgNode(dict):
+    """A dict with attribute access, freezing, and YAML merge support."""
+
+    _IMMUTABLE_KEY = "__immutable__"
+
+    def __init__(self, init_dict: Dict[str, Any] | None = None):
+        super().__init__()
+        object.__setattr__(self, "_frozen", False)
+        if init_dict:
+            for k, v in init_dict.items():
+                self[k] = CfgNode(v) if isinstance(v, dict) else v
+
+    # -- attribute access -------------------------------------------------
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if object.__getattribute__(self, "_frozen"):
+            raise AttributeError(f"CfgNode is frozen; cannot set {name}")
+        self[name] = value
+
+    def __setitem__(self, name: str, value: Any) -> None:
+        if object.__getattribute__(self, "_frozen"):
+            raise AttributeError(f"CfgNode is frozen; cannot set {name}")
+        super().__setitem__(name, value)
+
+    # -- freeze / clone ---------------------------------------------------
+    def freeze(self) -> None:
+        object.__setattr__(self, "_frozen", True)
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v.freeze()
+
+    def defrost(self) -> None:
+        object.__setattr__(self, "_frozen", False)
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v.defrost()
+
+    def is_frozen(self) -> bool:
+        return object.__getattribute__(self, "_frozen")
+
+    def clone(self) -> "CfgNode":
+        node = CfgNode()
+        for k, v in self.items():
+            node[k] = v.clone() if isinstance(v, CfgNode) else copy.deepcopy(v)
+        return node
+
+    # -- merging ----------------------------------------------------------
+    def _merge_dict(self, other: Dict[str, Any], path: str = "") -> None:
+        for k, v in other.items():
+            full = f"{path}.{k}" if path else k
+            if k not in self:
+                raise KeyError(f"Unknown config key: {full}")
+            if isinstance(v, dict):
+                if not isinstance(self[k], CfgNode):
+                    raise TypeError(f"Cannot merge dict into scalar at {full}")
+                self[k]._merge_dict(v, full)
+            else:
+                super().__setitem__(k, _coerce(v, self[k], full))
+
+    def merge_from_file(self, path: str) -> None:
+        import yaml
+
+        with open(path, "r") as f:
+            data = yaml.safe_load(f) or {}
+        if self.is_frozen():
+            raise AttributeError("CfgNode is frozen")
+        self._merge_dict(data)
+
+    def merge_from_other_cfg(self, other: "CfgNode") -> None:
+        self._merge_dict(other)
+
+    def merge_from_list(self, opts: List[str]) -> None:
+        if self.is_frozen():
+            raise AttributeError("CfgNode is frozen")
+        assert len(opts) % 2 == 0, f"Override list must be key/value pairs, got {opts}"
+        for key, value in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = key.split(".")
+            for p in parts[:-1]:
+                node = node[p]
+            leaf = parts[-1]
+            if leaf not in node:
+                raise KeyError(f"Unknown config key: {key}")
+            if isinstance(value, str):
+                import yaml
+
+                parsed = yaml.safe_load(value)
+            else:
+                parsed = value
+            dict.__setitem__(node, leaf, _coerce(parsed, node[leaf], key))
+
+    # -- serialization ----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            k: (v.to_dict() if isinstance(v, CfgNode) else v) for k, v in self.items()
+        }
+
+    def dump(self) -> str:
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"CfgNode({self.to_dict()!r})"
+
+
+def _coerce(value: Any, old: Any, key: str) -> Any:
+    """Validate/convert an override value against the default's type."""
+    if old is None or value is None:
+        return value
+    # PyYAML (YAML 1.1) parses "2e-4" as a string; coerce numeric-looking
+    # strings when the default is numeric (yacs does this via literal_eval).
+    if isinstance(old, (int, float)) and not isinstance(old, bool) and isinstance(value, str):
+        try:
+            value = float(value)
+        except ValueError:
+            pass
+    if isinstance(old, bool):
+        if isinstance(value, bool):
+            return value
+        raise TypeError(f"Expected bool for {key}, got {value!r}")
+    if isinstance(old, float) and isinstance(value, int):
+        return float(value)
+    if isinstance(old, (tuple, list)) and isinstance(value, (tuple, list)):
+        return type(old)(value)
+    if isinstance(old, int) and isinstance(value, float) and value.is_integer():
+        return int(value)
+    if not isinstance(value, type(old)) and not isinstance(old, type(value)):
+        raise TypeError(f"Type mismatch for {key}: {type(old).__name__} vs {value!r}")
+    return value

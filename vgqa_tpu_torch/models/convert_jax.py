@@ -1,0 +1,80 @@
+"""Carry a JAX parameter tree over to this package's modules.
+
+The modules of ``vgqa_tpu_torch.models`` use the flax submodule names, so a
+flax tree (``{'params': {...}}`` or its inner dict, numpy or array leaves)
+becomes a ``state_dict`` by one generic walk with a rule per kind of leaf:
+
+* Dense ``kernel`` [in, out]   -> ``weight`` [out, in]
+* Conv ``kernel`` HWIO         -> ``weight`` OIHW
+* LayerNorm/GroupNorm/FrozenAffine ``scale`` -> ``weight``
+* Embed ``embedding``          -> ``weight``
+* ``bias`` and the raw parameters below keep their name and layout:
+  ``patch_embed_kernel``, ``patch_embed_bias``,
+  ``relative_position_bias_table``, ``row_embed``, ``col_embed``,
+  ``time_embed``.
+
+Any other leaf raises. A reference checkpoint loads along
+``vgqa_tpu.models.convert_grounding.convert_grounding_reference`` (numpy,
+in the JAX package) followed by ``state_dict_from_jax``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+_AS_STORED = {"bias", "patch_embed_kernel", "patch_embed_bias",
+              "relative_position_bias_table", "row_embed", "col_embed",
+              "time_embed"}
+
+
+def _convert_leaf(path, value):
+    name = path[-1]
+    arr = np.asarray(value, dtype=np.float32)
+    if name == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
+    if name in ("scale", "embedding"):
+        return "weight", arr
+    if name in _AS_STORED:
+        return name, arr
+    raise KeyError(f"{'/'.join(path)}: no rule maps this leaf")
+
+
+def state_dict_from_jax(params: Mapping,
+                        module: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree -> ``state_dict`` (float32 tensors).
+
+    With ``module`` given, the result must name exactly the module's
+    parameters with the same shapes; a missing, extra or misshapen entry
+    raises."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+            return
+        name, arr = _convert_leaf(path, node)
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(params, ())
+    if module is not None:
+        expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+        missing = sorted(set(expected) - set(out))
+        extra = sorted(set(out) - set(expected))
+        if missing or extra:
+            raise KeyError(f"JAX tree does not match the module: missing {missing}, "
+                           f"unmapped {extra}")
+        for k, shape in expected.items():
+            if tuple(out[k].shape) != shape:
+                raise ValueError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
+    return out

@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded through ``ctypes``. The build happens at first use, into
+``csrc/build/`` (git-ignored), under a name keyed by the sources' hash, so
+an edited source rebuilds and an unchanged one loads at once. Nothing here
+runs at import time: the CPU tests import every module of the package on a
+host without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+BUILD_DIR = os.path.join(_CSRC, "build")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# argtypes of every C entry point in csrc/kernels.cu
+_SIGNATURES = {
+    "vgqa_window_attention": [_P, _P, _P, _P, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L,
+                              _P, _P, _I, _P, _I, _F, _P],
+    "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
+    "vgqa_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
+                       _P, _L, _P, _P, _I, _L, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = {"seconds": 0.0, "ptxas": "", "path": ""}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                           "or set CUDA_HOME")
+    return path
+
+
+def _arch_flag() -> str:
+    import torch
+
+    major, minor = torch.cuda.get_device_capability()
+    # sm_90a: the Hopper target that also admits wgmma/setmaxnreg
+    cc = f"{major}{minor}" + ("a" if (major, minor) == (9, 0) else "")
+    return f"arch=compute_{cc},code=sm_{cc}"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                     + glob.glob(os.path.join(_CSRC, "*.cuh")))
+    arch = _arch_flag()
+    h = hashlib.sha256(arch.encode())
+    for s in sources:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libvgqa_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", arch, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+               *[s for s in sources if s.endswith(".cu")]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
+        build_log.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
+    build_log["path"] = path
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> Optional[int]:
+    """Device pointer of a tensor, or None (NULL) for a missing operand."""
+    return None if t is None else t.data_ptr()

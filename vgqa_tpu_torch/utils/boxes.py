@@ -1,0 +1,14 @@
+"""Box format conversions (the part of ``vgqa_tpu/utils/boxes.py`` that
+postprocessing uses)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def box_cxcywh_to_xyxy(x: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (x_min, y_min, x_max, y_max); last dim 4."""
+    cx, cy, w, h = x.unbind(-1)
+    return torch.stack(
+        [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1
+    )
