@@ -4,11 +4,19 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; fails at once when no CUDA device is visible.
-2. Builds the hand-written kernels from vgqa_tpu_torch/csrc and prints the
-   build seconds.
+2. Builds the hand-written kernels from vgqa_tpu_torch/csrc (one nvcc per
+   source, started together) and prints the build seconds.
 3. Checks each kernel against its plain PyTorch version (float32 on the same
-   bf16 inputs) at the shapes the serving path gives it, with the error
-   relative to max |ref| (fails above 3e-2) and both times (CUDA events).
+   bf16 inputs) at the shapes its path gives it, with the error relative to
+   max |ref| (fails above 3e-2) and the times (CUDA events) of the kernel,
+   the plain version and, where one PyTorch call computes the same function,
+   that call (``library_ms``; the port never calls it):
+   K2 window_attention at the encoder's serving rows; K1 swin_block_canvas
+   at the 12 serving block shapes (V = 2) and, with DropPath gates that
+   include zeros, at the 8 training stage shapes (B = 1); K3
+   flash_mha_train forward (out, lse) and backward (dq, dk, dv) at
+   [512, 124, 32] and [512, 418, 32], dropout rates 0 and 0.1 (both sides
+   draw the same keep mask).
 4. Serves the full-width default grounding model (ResNet-101, Video Swin-T,
    RoBERTa-base, 6-layer encoder, 6+6 decoders) with random weights from
    seed 0 in bf16: one warm-up request, then three pipelined 128-frame
@@ -16,7 +24,17 @@
    decoded-frames path, checking each response and that the K1/K2 launch
    counters rose by 12/6 per forward; then one forward with the kernel
    routes on against the same model with the plain routes.
-5. Prints a JSON line with the kernel table, then, as the last line,
+5. Frees the serving models and trains the full-width default model with
+   TPU.TRAIN_DTYPE bfloat16 at 64 frames x 224 px, V = 1, random weights
+   from seed 0, on the synthetic batch: one warm-up step, three timed steps
+   (ms/step by CUDA events, peak device memory), checking a finite loss,
+   frozen parameters bit-unchanged, trainable ones changed, the EMA moved,
+   and K1 x12, K3 forward x6 and backward x6 launches per step; the
+   forward+backward and the optimizer+EMA halves timed alone; one step
+   under torch.profiler (device busy share); then the loss and the global
+   gradient norm of one step with the kernel routes on against the plain
+   routes, from the same state with every dropout rate 0.
+6. Prints a JSON line with the kernel table, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit) before the last line is printed.
@@ -24,6 +42,7 @@ Any failure raises (non-zero exit) before the last line is printed.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -34,6 +53,8 @@ import torch
 
 REL_TOL = 3e-2      # bf16 kernel vs f32 plain version, relative to max |ref|
 WARMUP, REPS = 2, 5
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
 
 def card_line() -> str:
@@ -60,47 +81,67 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max()), float((out - ref).abs().max())
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms on an H100 SXM, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
 def check_window_attention(dev, g):
     from vgqa_tpu_torch.ops.kernels.window_attention import (
         window_attention, window_attention_reference)
 
     rows = []
     for S in (124, 418):                  # 224 px and 420 px encoder rows
-        q, k, v = (torch.randn(128, S, 256, generator=g, device=dev).bfloat16()
+        W, C, H = 128, 256, 8
+        q, k, v = (torch.randn(W, S, C, generator=g, device=dev).bfloat16()
                    for _ in range(3))
-        kv = (torch.rand(128, S, generator=g, device=dev) > 0.1).float()
+        kv = (torch.rand(W, S, generator=g, device=dev) > 0.1).float()
         kv[:, 0] = 1.0
         f32 = [t.float() for t in (q, k, v)]
-        out = window_attention(q, k, v, key_valid=kv, num_heads=8)
-        ref = window_attention_reference(*f32, key_valid=kv, num_heads=8)
+        out = window_attention(q, k, v, key_valid=kv, num_heads=H)
+        ref = window_attention_reference(*f32, key_valid=kv, num_heads=H)
         torch.cuda.synchronize()
         rel, mae = rel_err(out, ref)
-        ms = cuda_ms(lambda: window_attention(q, k, v, key_valid=kv, num_heads=8))
-        plain = cuda_ms(lambda: window_attention_reference(*f32, key_valid=kv, num_heads=8))
-        rows.append({"S": S, "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain})
+        ms = cuda_ms(lambda: window_attention(q, k, v, key_valid=kv, num_heads=H))
+        plain = cuda_ms(lambda: window_attention_reference(*f32, key_valid=kv, num_heads=H))
+
+        def heads(t):
+            return t.reshape(W, S, H, C // H).transpose(1, 2)
+
+        mask = (kv > 0)[:, None, None, :]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=mask))
+        b_ms, b_by = bound(4.0 * W * S * S * C, 4 * W * S * C * 2 + W * S * 4)
+        rows.append({"S": S, "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
         print(f"K2 window_attention W=128 S={S} C=256 h=8: rel_err {rel:.3e} "
-              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms")
+              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  "
+              f"sdpa {lib:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
         if not rel < REL_TOL:
             raise AssertionError(f"window_attention S={S}: rel_err {rel} >= {REL_TOL}")
     return rows
 
 
-def check_swin_block(dev, g):
+# (dims D, H, W, C, heads, shift, calls of this shape per forward at 224 px)
+K1_SERVE_CASES = [
+    ((64, 56, 56), 96, 3, (0, 0, 0), 1), ((64, 56, 56), 96, 3, (4, 3, 3), 1),
+    ((64, 28, 28), 192, 6, (0, 0, 0), 1), ((64, 28, 28), 192, 6, (4, 3, 3), 1),
+    ((64, 14, 14), 384, 12, (0, 0, 0), 3), ((64, 14, 14), 384, 12, (4, 3, 3), 3),
+    ((64, 7, 7), 768, 24, (0, 0, 0), 1), ((64, 7, 7), 768, 24, (4, 3, 3), 1),
+    ((64, 53, 53), 192, 6, (4, 3, 3), 0),    # 420 px stage 1: padded to 56, valid
+]
+K1_TRAIN_CASES = K1_SERVE_CASES[:8]
+
+
+def check_swin_block(dev, g, cases, batch, gated):
     from vgqa_tpu_torch.models.video_swin import (
         _adjust_window, _region_partition, _valid_partition)
     from vgqa_tpu_torch.ops.kernels.swin_block import (
         swin_block_canvas, swin_block_canvas_reference)
 
-    # (dims D, H, W, C, heads, shift, calls of this shape per forward at 224 px)
-    cases = [
-        ((64, 56, 56), 96, 3, (0, 0, 0), 1), ((64, 56, 56), 96, 3, (4, 3, 3), 1),
-        ((64, 28, 28), 192, 6, (0, 0, 0), 1), ((64, 28, 28), 192, 6, (4, 3, 3), 1),
-        ((64, 14, 14), 384, 12, (0, 0, 0), 3), ((64, 14, 14), 384, 12, (4, 3, 3), 3),
-        ((64, 7, 7), 768, 24, (0, 0, 0), 1), ((64, 7, 7), 768, 24, (4, 3, 3), 1),
-        ((64, 53, 53), 192, 6, (4, 3, 3), 0),    # 420 px stage 1: padded to 56, valid
-    ]
     rows = []
-    for dims, C, heads, shift, per_fwd in cases:
+    for i, (dims, C, heads, shift, per_fwd) in enumerate(cases):
         window, shift = _adjust_window(dims, (8, 7, 7), shift)
         padded = tuple(d + (-d) % w for d, w in zip(dims, window))
         N = window[0] * window[1] * window[2]
@@ -112,36 +153,126 @@ def check_swin_block(dev, g):
               rnd(3 * C, sc=0.1), rnd(C, C, sc=C ** -0.5), rnd(C, sc=0.1),
               1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 4 * C, sc=C ** -0.5),
               rnd(4 * C, sc=0.1), rnd(4 * C, C, sc=(4 * C) ** -0.5), rnd(C, sc=0.1)]
-        canvas = rnd(2, *padded, C)
+        canvas = rnd(batch, *padded, C)
         bias = rnd(heads, N, N, sc=0.5)
         region = (torch.from_numpy(_region_partition(padded, window, shift)).to(dev)
                   if any(shift) else None)
         valid = _valid_partition(dims, padded, window, shift)
         valid = None if valid is None else torch.from_numpy(valid).to(dev)
+        # DropPath gates 0 or 1/keep per branch, a dropped branch in every case
+        gates = (torch.tensor([[0.0, 1.25]] if i % 2 else [[1.1111, 0.0]], device=dev)
+                 .repeat(batch, 1) if gated else None)
         args = (canvas, *ws, bias, heads, window, shift)
         f32 = (canvas.float(), *[w.float() for w in ws], bias.float(), heads, window, shift)
-        out = swin_block_canvas(*args, region=region, valid=valid)
-        ref = swin_block_canvas_reference(*f32, region=region, valid=valid)
+        kw = {"region": region, "valid": valid, "gates": gates}
+        out = swin_block_canvas(*args, **kw)
+        ref = swin_block_canvas_reference(*f32, **kw)
         torch.cuda.synchronize()
         rel, mae = rel_err(out, ref)
         del out, ref
-        ms = cuda_ms(lambda: swin_block_canvas(*args, region=region, valid=valid))
-        plain = cuda_ms(lambda: swin_block_canvas_reference(*f32, region=region, valid=valid))
+        ms = cuda_ms(lambda: swin_block_canvas(*args, **kw))
+        plain = cuda_ms(lambda: swin_block_canvas_reference(*f32, **kw))
+        tokens = batch * padded[0] * padded[1] * padded[2]
+        flops = tokens * (24.0 * C * C + 4.0 * N * C)
+        nbytes = 2 * tokens * C * 2 + 12 * C * C * 2 + heads * N * N * 2
+        b_ms, b_by = bound(flops, nbytes)
         rows.append({"dims": dims, "C": C, "shift": shift, "per_fwd": per_fwd,
-                     "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain})
-        print(f"K1 swin_block_canvas B=2 {dims}->{padded} C={C} h={heads} roll={shift} "
-              f"valid={valid is not None}: rel_err {rel:.3e} max_abs_err {mae:.3e}  "
-              f"kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms")
+                     "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        print(f"K1 swin_block_canvas B={batch} {dims}->{padded} C={C} h={heads} roll={shift} "
+              f"valid={valid is not None} gates={gates is not None}: rel_err {rel:.3e} "
+              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  "
+              f"bound {b_ms:.3f} ms ({b_by})")
         if not rel < REL_TOL:
             raise AssertionError(f"swin_block_canvas {dims} C={C}: rel_err {rel} >= {REL_TOL}")
     return rows
 
 
-def full_cfg(res: int):
+def check_flash_train(dev, g):
+    from vgqa_tpu_torch.ops.kernels.flash_train import (
+        flash_train_bwd, flash_train_bwd_reference, flash_train_fwd,
+        flash_train_fwd_reference, fold_heads)
+
+    rows = []
+    W, H, D = 64, 8, 32                    # 64 frames x 8 heads = 512 rows, dh 32
+    scale = D ** -0.5
+    for L in (124, 418):                   # 224 px and 420 px encoder rows
+        q, k, v, do = (torch.randn(W, L, H * D, generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        mask = torch.rand(W, L, generator=g, device=dev) > 0.1
+        mask[:, 0] = True
+        f32 = [fold_heads(t.float(), H) for t in (q, k, v, do)]
+        maskf = mask.repeat_interleave(H, dim=0)
+        for rate in (0.0, 0.1):
+            args = (mask, 12345, rate, scale, H)
+            out, lse = flash_train_fwd(q, k, v, *args)
+            grads = flash_train_bwd(q, k, v, out, do, lse, *args)
+            r_out, r_lse = flash_train_fwd_reference(*f32[:3], maskf, 12345, rate, scale)
+            r_grads = flash_train_bwd_reference(*f32[:3], r_out, f32[3], r_lse, maskf, 12345,
+                                                rate, scale)
+            torch.cuda.synchronize()
+            errs = {"out": rel_err(fold_heads(out, H), r_out)}
+            errs.update({n: rel_err(fold_heads(a, H), b)
+                         for n, a, b in zip(("dq", "dk", "dv"), grads, r_grads)})
+            lse_err = float((lse - r_lse).abs().max())
+            del grads, r_grads, r_out, r_lse
+            fwd_ms = cuda_ms(lambda: flash_train_fwd(q, k, v, *args))
+            bwd_ms = cuda_ms(lambda: flash_train_bwd(q, k, v, out, do, lse, *args))
+
+            def plain():
+                o, s = flash_train_fwd_reference(*f32[:3], maskf, 12345, rate, scale)
+                return flash_train_bwd_reference(*f32[:3], o, f32[3], s, maskf, 12345,
+                                                 rate, scale)
+
+            plain_ms = cuda_ms(plain)
+            lib_ms = None
+            if rate == 0.0:
+                qh, kh, vh = (t.reshape(W, L, H, D).transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                doh = do.reshape(W, L, H, D).transpose(1, 2)
+                am = mask[:, None, None, :]
+
+                def library():
+                    o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                         attn_mask=am)
+                    torch.autograd.grad(o, (qh, kh, vh), doh)
+
+                lib_ms = cuda_ms(library)
+            B = W * H
+            elems = B * L * D
+            f_ms, f_by = bound(4.0 * B * L * L * D, 4 * elems * 2 + B * L * 4 + W * L)
+            b_ms, b_by = bound(10.0 * B * L * L * D, 8 * elems * 2 + B * L * 4 + W * L)
+            row = {"L": L, "rate": rate, "max_rel_err": max(e[0] for e in errs.values()),
+                   "max_abs_err": max(e[1] for e in errs.values()), "lse_abs_err": lse_err,
+                   "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "fwd_bound_ms": f_ms, "bwd_bound_ms": b_ms,
+                   "bound_by": "bytes" if "bytes" in (f_by, b_by) else "operations"}
+            rows.append(row)
+            print(f"K3 flash_mha_train [512, {L}, 32] rate={rate}: rel_err "
+                  + " ".join(f"{n} {e[0]:.3e}" for n, e in errs.items())
+                  + f"  lse abs {lse_err:.2e}  fwd {fwd_ms:.3f} ms  bwd {bwd_ms:.3f} ms  "
+                  f"plain(f32) fwd+bwd {plain_ms:.3f} ms  sdpa fwd+bwd "
+                  + ("-" if lib_ms is None else f"{lib_ms:.3f} ms")
+                  + f"  bound fwd {f_ms:.4f} ({f_by}) bwd {b_ms:.4f} ms ({b_by})")
+            if not (row["max_rel_err"] < REL_TOL and lse_err < 1e-2):
+                raise AssertionError(f"flash_mha_train L={L} rate={rate}: {errs}, lse {lse_err}")
+            del out, lse
+        del q, k, v, do, f32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def full_cfg(res: int, **overrides):
     from vgqa_tpu_torch.config import build_default_cfg
 
     cfg = build_default_cfg()
     cfg.INPUT.RESOLUTION = res
+    for key, value in overrides.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node[p]
+        node[leaf] = value
     cfg.freeze()
     return cfg
 
@@ -173,37 +304,31 @@ def set_kernel_routes(model, on: bool):
         getattr(model.ground_encoder, f"layer_{i}").self_attn.use_flash = on
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 1
-    card = card_line()
-    print(card)
-    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}"
-          f"  device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions stay f32
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    from vgqa_tpu_torch.inference.grounding import load_model, predict_many
-    from vgqa_tpu_torch.ops.kernels import build
+def reset_launches():
+    from vgqa_tpu_torch.ops.kernels.flash_train import flash_mha_train
     from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas
     from vgqa_tpu_torch.ops.kernels.window_attention import window_attention
 
-    t0 = time.perf_counter()
-    build.load_library()
-    print(f"kernels built+loaded in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_log['seconds']:.2f} s) -> {build.build_log['path']}")
-    for line in build.build_log["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    swin_block_canvas.launches = window_attention.launches = 0
+    flash_mha_train.fwd_launches = flash_mha_train.bwd_launches = 0
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    k2_rows = check_window_attention(dev, g)
-    k1_rows = check_swin_block(dev, g)
-    torch.cuda.empty_cache()
 
-    # ---- serving: full-width default config, random weights, bf16 ----------
+def read_launches():
+    from vgqa_tpu_torch.ops.kernels.flash_train import flash_mha_train
+    from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas
+    from vgqa_tpu_torch.ops.kernels.window_attention import window_attention
+
+    return {"swin_block_canvas": swin_block_canvas.launches,
+            "window_attention": window_attention.launches,
+            "flash_mha_train.fwd": flash_mha_train.fwd_launches,
+            "flash_mha_train.bwd": flash_mha_train.bwd_launches}
+
+
+def serve(dev, card):
+    from vgqa_tpu_torch.inference.grounding import (
+        _group_inputs, _prepare, load_model, predict_many)
+    from vgqa_tpu_torch.training.evaluator import dispatch_forward
+
     t0 = time.perf_counter()
     loaded = load_model(full_cfg(224), device=dev, seed=0)
     loaded_420 = load_model(full_cfg(420), device=dev, seed=0)
@@ -217,19 +342,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"warm-up request (224 px): {time.perf_counter() - t0:.3f} s")
 
-    swin_block_canvas.launches = 0
-    window_attention.launches = 0
     reqs = make_requests(3, 224, seed=2)
+    reqs420 = make_requests(1, 420, seed=3)
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     outs = predict_many(reqs, loaded=loaded)
     t224 = time.perf_counter() - t0
-    reqs420 = make_requests(1, 420, seed=3)
     t0 = time.perf_counter()
     outs += predict_many(reqs420, loaded=loaded_420)
     t420 = time.perf_counter() - t0
-    launches = {"swin_block_canvas": swin_block_canvas.launches,
-                "window_attention": window_attention.launches}
+    launches = read_launches()
     for out in outs:
         if isinstance(out, Exception):
             raise out
@@ -241,15 +364,13 @@ def main() -> int:
     print(f"served 1 request x 128 frames @420 px (first call at this size): "
           f"{t420:.3f} s/request, {2 / t420:.2f} clips/s  [{card}]")
     print(f"launches over {forwards} forwards: {launches}")
-    if launches != {"swin_block_canvas": 12 * forwards, "window_attention": 6 * forwards}:
+    if launches != {"swin_block_canvas": 12 * forwards, "window_attention": 6 * forwards,
+                    "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0}:
         raise AssertionError(f"expected 12 and 6 launches per forward, got {launches}")
     print("response 0:", json.dumps({"temporal": outs[0]["temporal"],
                                      "tube[0]": outs[0]["tube"][0]}))
 
     # ---- kernel routes vs plain routes on one full-width forward ----------
-    from vgqa_tpu_torch.inference.grounding import _group_inputs, _prepare
-    from vgqa_tpu_torch.training.evaluator import dispatch_forward
-
     job = _prepare(loaded, make_requests(1, 224, seed=4)[0])
     fwd, video, text, infos, _, canvas = _group_inputs(loaded, [job])
     results = {}
@@ -269,25 +390,237 @@ def main() -> int:
     # kernel, which moves boxes by hundreds of pixels or turns them non-finite
     if not (np.isfinite(box_diff) and att_diff < 0.1 and box_diff < 64.0):
         raise AssertionError("kernel and plain routes disagree on the full forward")
+    return launches
+
+
+def timed(fn, reps=3):
+    """(device ms, host ms) per call of ``fn``: CUDA events around ``reps``
+    calls, and the host clock to the end of the last call's enqueue."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def profile_step(step):
+    """Run ``step()`` once under torch.profiler; returns (wall ms, device
+    busy ms as the union of kernel intervals, top kernels by time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return wall, busy / 1e3, len(spans), top
+
+
+def train(dev, card):
+    from vgqa_tpu_torch.data.synthetic_batch import synthetic_batch
+    from vgqa_tpu_torch.training.optimizer import update_ema
+    from vgqa_tpu_torch.training.trainer import Trainer, batch_to
+
+    cfg = full_cfg(224, **{"TPU.TRAIN_DTYPE": "bfloat16"})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev, seed=0)
+    trainer.setup(max_iter=1000)
+    state, step_fn = trainer.state, trainer.step_fn
+    model, labels = state.model, state.optimizer.labels
+    b = batch_to(synthetic_batch(cfg, seed=0), dev)
+    args = (b["video"], b["text"], b["targets"])
+    n_train = sum(p.numel() for n, p in model.named_parameters() if labels[n] != "frozen")
+    print(f"train model built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+          f"{n_train / 1e6:.1f}M trainable; frames {tuple(b['video'].frames.shape)} "
+          f"{b['video'].frames.dtype}, dtype {cfg.TPU.TRAIN_DTYPE}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = step_fn(state, *args, seed=0)
+    first_loss = float(m["loss"])
+    print(f"warm-up train step: {time.perf_counter() - t0:.3f} s (loss {first_loss:.4f})")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ema_before = {n: e.clone() for n, e in state.ema.items()}
+
+    torch.cuda.synchronize()
+    reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    metrics = [step_fn(state, *args, seed=0) for _ in range(3)]
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_launches()
+    ms_step = start.elapsed_time(end) / 3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x["loss"]) for x in metrics]
+    print(f"train step 64f@224 bf16 V=1: {ms_step:.1f} ms/step (CUDA events, 3 steps; "
+          f"host {1e3 * host_s / 3:.1f} ms/step), peak memory {peak_gb:.2f} GiB  [{card}]")
+    print(f"losses {losses}, grad norms {[round(float(x['grad_norm']), 4) for x in metrics]}")
+    print("loss terms of the last step: " + json.dumps(
+        {k: round(float(v), 5) for k, v in metrics[-1].items() if not k[-1].isdigit()}))
+    print(f"launches over 3 steps: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss {losses}")
+    if launches != {"swin_block_canvas": 36, "window_attention": 0,
+                    "flash_mha_train.fwd": 18, "flash_mha_train.bwd": 18}:
+        raise AssertionError(f"expected 12 / 6 / 6 launches per step, got {launches}")
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if labels[n] == "frozen" and not torch.equal(p, before[n])]
+    trained = [n for n, p in model.named_parameters()
+               if labels[n] != "frozen" and not torch.equal(p, before[n])]
+    n_trainable = sum(1 for n in labels if labels[n] != "frozen")
+    ema_moved = sum(1 for n in state.ema if not torch.equal(state.ema[n], ema_before[n]))
+    print(f"parameters changed: {len(trained)} of {n_trainable} trainable, "
+          f"{len(frozen_changed)} frozen; EMA leaves moved: {ema_moved}")
+    if frozen_changed or len(trained) < 0.9 * n_trainable or ema_moved < 0.9 * n_trainable:
+        raise AssertionError(f"frozen changed {frozen_changed[:5]}, trained {len(trained)}, "
+                             f"EMA moved {ema_moved}")
+    del before, ema_before
+
+    # the step's two halves alone: forward + loss + backward, then clip +
+    # grouped AdamW + EMA (on the gradients the first half left)
+    fb_ms, fb_host = timed(lambda: step_fn.loss_and_grads(state, *args, seed=0))
+    opt_ms, opt_host = timed(lambda: (state.optimizer.step(state.step),
+                                      update_ema(dict(model.named_parameters()), state.ema,
+                                                 cfg.MODEL.EMA_DECAY)))
+    print(f"train step halves: forward+loss+backward {fb_ms:.1f} ms (host {fb_host:.1f} ms), "
+          f"clip+AdamW+EMA {opt_ms:.1f} ms (host {opt_host:.1f} ms)  [{card}]")
+
+    wall, busy, n_kernels, top = profile_step(lambda: step_fn(state, *args, seed=0))
+    print(f"profiled train step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle share {1 - busy / wall:.3f}), {n_kernels} kernel launches")
+    for name, us in top:
+        print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
+
+    # ---- kernel routes vs plain routes, same state, every dropout rate 0 ----
+    from vgqa_tpu_torch.ops.dropout import DropoutRng
+
+    for mod in model.modules():
+        if isinstance(getattr(mod, "dropout", None), float):
+            mod.dropout = 0.0          # K3 at rate 0, no mask on the einsum route
+    DropoutRng.dropout = lambda self, x, rate: x     # the fixed-rate dropouts too
+    res = {}
+    for on in (True, False):
+        set_kernel_routes(model, on)
+        total, _ = step_fn.loss_and_grads(state, *args, seed=5)
+        grads = [p.grad for n, p in model.named_parameters()
+                 if labels[n] != "frozen" and p.grad is not None]
+        res[on] = (float(total), float(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))))
+    set_kernel_routes(model, True)
+    d_loss = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    d_norm = abs(res[True][1] - res[False][1]) / res[False][1]
+    print(f"kernel vs plain routes, one train step: loss {res[True][0]:.5f} vs "
+          f"{res[False][0]:.5f} (rel {d_loss:.2e}), grad norm {res[True][1]:.4f} vs "
+          f"{res[False][1]:.4f} (rel {d_norm:.2e})")
+    # bf16 forward and backward through ~100 layers with random weights: the
+    # two routes round at other points; a broken kernel (a wrong mask, a wrong
+    # gradient) moves the loss or the gradient norm by far more
+    if not (d_loss < 2e-2 and d_norm < 5e-2):
+        raise AssertionError("kernel and plain routes disagree on the train step")
+    return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}"
+          f"  device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    from vgqa_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"kernels built+loaded in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {build.build_log['seconds']:.2f} s) -> {build.build_log['path']}")
+    for line in build.build_log["ptxas"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    k2_rows = check_window_attention(dev, g)
+    k1_rows = check_swin_block(dev, g, K1_SERVE_CASES, batch=2, gated=False)
+    k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
+    k3_rows = check_flash_train(dev, g)
+    torch.cuda.empty_cache()
+
+    serve_launches = serve(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = train(dev, card)
 
     k1_fwd = sum(r["ms"] * r["per_fwd"] for r in k1_rows)
     k1_plain = sum(r["plain_ms"] * r["per_fwd"] for r in k1_rows)
+    k1_bound = sum(r["bound_ms"] * r["per_fwd"] for r in k1_rows)
+    k1_by = max(k1_rows, key=lambda r: r["bound_ms"] * r["per_fwd"])["bound_by"]
+    k2 = k2_rows[0]
+    k3 = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.1)
+    k3_lib = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.0)["library_ms"]
     table = {"kernels": [
         {"name": "swin_block_canvas", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
-         "launches": launches["swin_block_canvas"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-         "ms": k1_fwd, "plain_ms": k1_plain},
+         "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"],
+         "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
+                              "train": tr["launches"]["swin_block_canvas"]},
+         "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
+         "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None,
+         "train_step_ms": sum(r["ms"] * r["per_fwd"] for r in k1_train_rows),
+         "train_step_plain_ms": sum(r["plain_ms"] * r["per_fwd"] for r in k1_train_rows),
+         "train_step_bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1_train_rows)},
         {"name": "window_attention", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
-         "launches": launches["window_attention"],
+         "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
-         "ms": 6 * k2_rows[0]["ms"], "plain_ms": 6 * k2_rows[0]["plain_ms"]},
+         "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"]},
+        {"name": "flash_mha_train", "route": "cuda",
+         "source": "vgqa_tpu_torch/csrc/flash_train.cu",
+         "replaces": "vgqa_tpu/ops/pallas/flash_train.py:223",
+         "launches": tr["launches"]["flash_mha_train.fwd"] + tr["launches"]["flash_mha_train.bwd"],
+         "launches_by_direction": {"fwd": tr["launches"]["flash_mha_train.fwd"],
+                                   "bwd": tr["launches"]["flash_mha_train.bwd"]},
+         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+         "ms": 6 * (k3["fwd_ms"] + k3["bwd_ms"]), "plain_ms": 6 * k3["plain_ms"],
+         "bound_ms": 6 * (k3["fwd_bound_ms"] + k3["bwd_bound_ms"]), "bound_by": k3["bound_by"],
+         "library_ms": 6 * k3_lib,
+         "fwd_ms": k3["fwd_ms"], "bwd_ms": k3["bwd_ms"]},
     ]}
-    print("kernel table: ms / plain_ms = sum over one V=2 forward at 224 px "
-          "(K1: its 12 calls; K2: 6 calls at S=124)")
+    print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
+          "at 224 px for K1 (its 12 calls) and K2 (6 calls at S=124), over one train step "
+          "at 64f@224 for K3 (6 forward + 6 backward calls at [512, 124, 32], rate 0.1; "
+          "library: SDPA fwd+bwd at rate 0); launches over the serving (4 forwards) and "
+          f"training (3 steps) runs; train step {tr['ms_step']:.1f} ms, "
+          f"peak {tr['peak_gb']:.2f} GiB  [{card}]")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

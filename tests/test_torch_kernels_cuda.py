@@ -15,6 +15,14 @@ import pytest
 import torch
 
 from vgqa_tpu_torch.models import video_swin as tvs
+from vgqa_tpu_torch.ops.kernels.flash_train import (
+    flash_mha_train,
+    flash_train_bwd,
+    flash_train_bwd_reference,
+    flash_train_fwd,
+    flash_train_fwd_reference,
+    fold_heads,
+)
 from vgqa_tpu_torch.ops.kernels.swin_block import (
     swin_block_canvas,
     swin_block_canvas_reference,
@@ -97,3 +105,34 @@ def test_swin_block_canvas_kernel_cuda(cuda, shape, heads, shift, padded):
                                       region=region, valid=valid, gates=gates)
     torch.cuda.synchronize()
     assert _rel_err(out, ref) < CUDA_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk", [(124, 124), (418, 418), (70, 130)])
+def test_flash_train_kernel_cuda(cuda, Lq, Lk, rate):
+    """K3 forward (out, lse) and backward (dq, dk, dv) against the plain
+    version in f32 on the same bf16 inputs; at rate 0.1 both draw the same
+    keep mask, so the comparison is exact up to rounding."""
+    g = torch.Generator(device=cuda).manual_seed(Lq + Lk)
+    W, H = 16, 8
+    q = torch.randn(W, Lq, H * 32, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(W, Lk, H * 32, generator=g, device=cuda).bfloat16() for _ in range(2))
+    do = torch.randn(W, Lq, H * 32, generator=g, device=cuda).bfloat16()
+    mask = torch.rand(W, Lk, generator=g, device=cuda) > 0.2
+    mask[:, 0] = True
+    args = (mask, 77, rate, 32 ** -0.5, H)
+    fwd0, bwd0 = flash_mha_train.fwd_launches, flash_mha_train.bwd_launches
+    out, lse = flash_train_fwd(q, k, v, *args)
+    grads = flash_train_bwd(q, k, v, out, do, lse, *args)
+    f32 = [fold_heads(t.float(), H) for t in (q, k, v, do)]
+    maskf = mask.repeat_interleave(H, dim=0)
+    ref_out, ref_lse = flash_train_fwd_reference(*f32[:3], maskf, 77, rate, 32 ** -0.5)
+    ref_grads = flash_train_bwd_reference(*f32[:3], ref_out, f32[3], ref_lse, maskf, 77,
+                                          rate, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert _rel_err(fold_heads(out, H), ref_out) < CUDA_REL
+    assert (lse - ref_lse).abs().max().item() < 1e-2
+    for got, want in zip(grads, ref_grads):
+        assert _rel_err(fold_heads(got, H), want) < CUDA_REL
+    assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (fwd0 + 1, bwd0 + 1)

@@ -152,7 +152,7 @@ def test_predict_mp4_returns_schema(tmp_path):
 _NO_JAX = textwrap.dedent("""
     import importlib.abc, sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "cv2"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "cv2", "vgqa_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):

@@ -12,6 +12,7 @@ default config builds on a host without it:
 
 from __future__ import annotations
 
+import ast
 import copy
 from typing import Any, Dict, List
 
@@ -106,12 +107,7 @@ class CfgNode(dict):
             leaf = parts[-1]
             if leaf not in node:
                 raise KeyError(f"Unknown config key: {key}")
-            if isinstance(value, str):
-                import yaml
-
-                parsed = yaml.safe_load(value)
-            else:
-                parsed = value
+            parsed = _parse_scalar(value) if isinstance(value, str) else value
             dict.__setitem__(node, leaf, _coerce(parsed, node[leaf], key))
 
     # -- serialization ----------------------------------------------------
@@ -127,6 +123,22 @@ class CfgNode(dict):
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"CfgNode({self.to_dict()!r})"
+
+
+def _parse_scalar(text: str) -> Any:
+    """A command-line override value as YAML would read it, for the forms
+    configs use (bools, null, numbers, lists, tuples, strings), without
+    PyYAML (absent on the card machine)."""
+    word = text.strip()
+    low = word.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "none", "~", ""):
+        return None
+    try:
+        return ast.literal_eval(word)
+    except (ValueError, SyntaxError):
+        return word
 
 
 def _coerce(value: Any, old: Any, key: str) -> Any:

@@ -25,20 +25,17 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from vgqa_tpu.data.tokenizer import batch_encode, build_tokenizer
-from vgqa_tpu.data.video_io import (
+from ..config import build_default_cfg
+from ..data.tokenizer import batch_encode, build_tokenizer
+from ..data.video_io import (
     read_frames,
     read_frames_yuv,
     uniform_sample_indices,
     video_info,
 )
-
-from ..config import build_default_cfg
 from ..models import GroundingConfig, VSTGNet
-from ..models.layers import LearnedPosition2D
-from ..models.video_swin import VideoSwinBackbone, WindowAttention3D
+from ..models.init_weights import init_weights
 from ..training.evaluator import (
     convert_outputs,
     dispatch_forward,
@@ -47,6 +44,7 @@ from ..training.evaluator import (
     make_eval_forward,
 )
 from ..utils.containers import TextBatch, VideoBatch
+from ..utils.device import resolve_device
 
 DEFAULT_CONFIG_PATH = "configs/grounding_vidstg.yaml"
 DEFAULT_CHECKPOINT_PATH = "checkpoints/grounding/vidstg.pt"
@@ -77,8 +75,9 @@ def load_model(cfg, ckpt_path: str = "", device=None, seed: int = 0,
     Weights come from ``state_dict`` if given, else from the ``torch.save``d
     state dict at ``ckpt_path`` if it exists, else from a seeded random
     initialization (``torch.Generator`` seeded with ``seed``). The model is
-    cast to ``cfg.TPU.COMPUTE_DTYPE`` (the serving precision)."""
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    cast to ``cfg.TPU.COMPUTE_DTYPE`` (the serving precision). ``device``
+    defaults to the card; without one it raises (pass ``device="cpu"``)."""
+    device = resolve_device(device)
     model = VSTGNet(GroundingConfig.from_cfg(cfg))
     init_weights(model, torch.Generator().manual_seed(seed))
     if state_dict is None and ckpt_path:
@@ -138,34 +137,6 @@ def load_model(cfg, ckpt_path: str = "", device=None, seed: int = 0,
                    ori_sizes, letterbox)
 
     return LoadedModel(cfg, model, tokenizer, device, dtype, fwd_u8, fwd_yuv)
-
-
-def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Seeded random initialization with flax-like scales: linear and conv
-    weights N(0, 1/fan_in), zero biases, unit norms, N(0, 1/dim) embeddings,
-    and each raw parameter at the scale of its JAX initializer."""
-
-    def normal_(t, std):
-        with torch.no_grad():
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            normal_(m.weight, m.weight[0].numel() ** -0.5)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.Embedding):
-            normal_(m.weight, m.weight.shape[1] ** -0.5)
-        elif isinstance(m, WindowAttention3D):
-            normal_(m.relative_position_bias_table, 0.02)
-        elif isinstance(m, VideoSwinBackbone):
-            normal_(m.patch_embed_kernel, m.patch_embed_kernel[0, ..., 0].numel() ** -0.5)
-        elif isinstance(m, LearnedPosition2D):
-            with torch.no_grad():
-                m.row_embed.copy_(torch.rand(m.row_embed.shape, generator=generator))
-                m.col_embed.copy_(torch.rand(m.col_embed.shape, generator=generator))
-    if hasattr(model, "ground_decoder") and hasattr(model.ground_decoder, "time_embed"):
-        normal_(model.ground_decoder.time_embed, 1.0)
 
 
 def _load_yaml_config(config_path: str):

@@ -7,25 +7,31 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout
 from .layers import MultiHeadAttention
 
 
 class BertCrossLayer(nn.Module):
-    """Cross-attention + post-LN residual + GELU FFN; returns (out, probs)."""
+    """Cross-attention + post-LN residual + GELU FFN; returns (out, probs)
+    (probs before dropout)."""
 
-    def __init__(self, d: int, num_heads: int = 8, eps: float = 1e-12):
+    def __init__(self, d: int, num_heads: int = 8, eps: float = 1e-12,
+                 dropout: float = 0.1):
         super().__init__()
-        self.attention = MultiHeadAttention(d, num_heads)
+        self.dropout = dropout
+        self.attention = MultiHeadAttention(d, num_heads, dropout=dropout)
         self.attention_ln = nn.LayerNorm(d, eps=eps)
         self.intermediate = nn.Linear(d, d)
         self.output = nn.Linear(d, d)
         self.output_ln = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, q, kv, kv_mask=None):
-        attn_out, probs = self.attention(q, kv, kv, key_mask=kv_mask, return_probs=True)
-        attn_out = self.attention_ln(q + attn_out)
+    def forward(self, q, kv, kv_mask=None, rng=None):
+        attn_out, probs = self.attention(q, kv, kv, key_mask=kv_mask, return_probs=True,
+                                         rng=rng)
+        attn_out = self.attention_ln(q + dropout(attn_out, self.dropout, rng))
         inter = F.gelu(self.intermediate(attn_out), approximate="none")
-        return self.output_ln(self.output(inter) + attn_out), probs
+        out = dropout(self.output(inter), self.dropout, rng)
+        return self.output_ln(out + attn_out), probs
 
 
 class PredictionHead(nn.Module):

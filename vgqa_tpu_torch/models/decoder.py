@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.dropout import dropout
 from ..ops.position_encoding import box_sine_embedding, sine_position_1d
 from .layers import MLP, MultiHeadAttention, TransformerFFN
 
@@ -16,37 +17,42 @@ class TimeDecoderLayer(nn.Module):
     """Self-attention over frame queries + per-frame cross-attention into
     that frame's [text | swin] tokens."""
 
-    def __init__(self, d: int, num_heads: int, ffn_dim: int):
+    def __init__(self, d: int, num_heads: int, ffn_dim: int, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d, num_heads, dropout=dropout)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.cross_attn = MultiHeadAttention(d, num_heads)
+        self.cross_attn = MultiHeadAttention(d, num_heads, dropout=dropout)
         self.norm3 = nn.LayerNorm(d, eps=1e-5)
-        self.ffn = TransformerFFN(d, ffn_dim)
+        self.ffn = TransformerFFN(d, ffn_dim, dropout)
         self.norm4 = nn.LayerNorm(d, eps=1e-5)
 
-    def forward(self, tgt, query_time, memory, memory_pos, memory_mask, time_mask):
+    def forward(self, tgt, query_time, memory, memory_pos, memory_mask, time_mask,
+                rng=None):
         q = tgt + query_time
-        tgt = self.norm1(tgt + self.self_attn(q, q, tgt, key_mask=time_mask))
+        attn = self.self_attn(q, q, tgt, key_mask=time_mask, rng=rng)
+        tgt = self.norm1(tgt + dropout(attn, self.dropout, rng))
         cross = self.cross_attn(tgt[:, :, None], memory + memory_pos, memory,
-                                key_mask=memory_mask)[:, :, 0]
-        tgt = self.norm3(tgt + cross)
-        return self.norm4(tgt + self.ffn(tgt))
+                                key_mask=memory_mask, rng=rng)[:, :, 0]
+        tgt = self.norm3(tgt + dropout(cross, self.dropout, rng))
+        return self.norm4(tgt + dropout(self.ffn(tgt, rng), self.dropout, rng))
 
 
 class TimeDecoder(nn.Module):
-    def __init__(self, num_layers: int, d: int, num_heads: int, ffn_dim: int):
+    def __init__(self, num_layers: int, d: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            setattr(self, f"layer_{i}", TimeDecoderLayer(d, num_heads, ffn_dim))
+            setattr(self, f"layer_{i}", TimeDecoderLayer(d, num_heads, ffn_dim, dropout))
         self.norm = nn.LayerNorm(d, eps=1e-5)
 
-    def forward(self, tgt, query_time, memory, memory_pos, memory_mask, time_mask):
+    def forward(self, tgt, query_time, memory, memory_pos, memory_mask, time_mask,
+                rng=None):
         intermediate = []
         for i in range(self.num_layers):
             tgt = getattr(self, f"layer_{i}")(tgt, query_time, memory, memory_pos,
-                                              memory_mask, time_mask)
+                                              memory_mask, time_mask, rng)
             intermediate.append(self.norm(tgt))
         return torch.stack(intermediate)                      # [n_layers, V, T, d]
 
@@ -54,30 +60,33 @@ class TimeDecoder(nn.Module):
 class PosDecoderLayer(nn.Module):
     """Conditional-DETR decoder layer with concat-style cross attention."""
 
-    def __init__(self, d: int, num_heads: int, ffn_dim: int, is_first: bool = False):
+    def __init__(self, d: int, num_heads: int, ffn_dim: int, is_first: bool = False,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.is_first = is_first
+        self.dropout = dropout
         for name in ("sa_qcontent", "sa_qtime", "sa_qpos", "sa_kcontent",
                      "sa_ktime", "sa_kpos", "sa_v", "ca_qcontent", "ca_kcontent",
                      "ca_v", "ca_kpos", "ca_qpos_sine", "cross_out"):
             setattr(self, name, nn.Linear(d, d))
         if is_first:
             self.ca_qpos = nn.Linear(d, d)
-        self.self_attn = MultiHeadAttention(d, num_heads)
+        self.self_attn = MultiHeadAttention(d, num_heads, dropout=dropout)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
         self.norm3 = nn.LayerNorm(d, eps=1e-5)
-        self.ffn = TransformerFFN(d, ffn_dim)
+        self.ffn = TransformerFFN(d, ffn_dim, dropout)
         self.norm4 = nn.LayerNorm(d, eps=1e-5)
 
     def forward(self, tgt, query_pos, query_time, query_sine, memory, memory_pos,
-                memory_mask, time_mask):
+                memory_mask, time_mask, rng=None):
         d = tgt.shape[-1]
         H = self.num_heads
         q = self.sa_qcontent(tgt) + self.sa_qtime(query_time) + self.sa_qpos(query_pos)
         k = self.sa_kcontent(tgt) + self.sa_ktime(query_time) + self.sa_kpos(query_pos)
         v = self.sa_v(tgt)
-        tgt = self.norm1(tgt + self.self_attn(q, k, v, key_mask=time_mask))
+        attn = self.self_attn(q, k, v, key_mask=time_mask, rng=rng)
+        tgt = self.norm1(tgt + dropout(attn, self.dropout, rng))
 
         q_content = self.ca_qcontent(tgt)
         k_content = self.ca_kcontent(memory)
@@ -100,8 +109,8 @@ class PosDecoderLayer(nn.Module):
             q2, k2, v, H, key_mask=memory_mask[:, :, None],
             scale=float(2 * d // H) ** -0.5,
         )[:, :, 0]
-        tgt = self.norm3(tgt + self.cross_out(cross))
-        return self.norm4(tgt + self.ffn(tgt))
+        tgt = self.norm3(tgt + dropout(self.cross_out(cross), self.dropout, rng))
+        return self.norm4(tgt + dropout(self.ffn(tgt, rng), self.dropout, rng))
 
 
 class PosDecoder(nn.Module):
@@ -109,7 +118,7 @@ class PosDecoder(nn.Module):
     in sigmoid space."""
 
     def __init__(self, num_layers: int, d: int, num_heads: int, ffn_dim: int,
-                 sine_feats: int = 128):
+                 sine_feats: int = 128, dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.query_scale = MLP(d, d, d, 2)
@@ -117,10 +126,10 @@ class PosDecoder(nn.Module):
         self.bbox_embed = MLP(d, d, 4, 3)
         for i in range(num_layers):
             setattr(self, f"layer_{i}", PosDecoderLayer(d, num_heads, ffn_dim,
-                                                        is_first=(i == 0)))
+                                                        is_first=(i == 0), dropout=dropout))
 
     def forward(self, tgt, init_boxes, query_time, memory, memory_pos, memory_mask,
-                time_mask):
+                time_mask, rng=None):
         d = tgt.shape[-1]
         pred_boxes = init_boxes
         anchors = []
@@ -131,9 +140,11 @@ class PosDecoder(nn.Module):
             if i > 0:
                 query_sine = query_sine * self.query_scale(tgt)
             tgt = getattr(self, f"layer_{i}")(tgt, query_pos, query_time, query_sine,
-                                              memory, memory_pos, memory_mask, time_mask)
-            pred_boxes = torch.sigmoid(self.bbox_embed(tgt))
-            anchors.append(pred_boxes)
+                                              memory, memory_pos, memory_mask, time_mask,
+                                              rng)
+            new_boxes = torch.sigmoid(self.bbox_embed(tgt))
+            anchors.append(new_boxes)
+            pred_boxes = new_boxes.detach()      # the next layer's anchors: no gradient
         return torch.stack(anchors)
 
 
@@ -142,7 +153,7 @@ class QueryDecoder(nn.Module):
 
     def __init__(self, d: int, num_layers: int = 6, num_heads: int = 8,
                  ffn_dim: int = 2048, video_max_len: int = 200,
-                 use_learned_time_embed: bool = False):
+                 use_learned_time_embed: bool = False, dropout: float = 0.1):
         super().__init__()
         self.pos_fc_ln1 = nn.LayerNorm(d, eps=1e-12)
         self.pos_fc_linear = nn.Linear(d, 4)
@@ -155,17 +166,20 @@ class QueryDecoder(nn.Module):
         if use_learned_time_embed:
             self.time_embed = nn.Parameter(torch.randn(video_max_len + 1, d))
         self.use_learned_time_embed = use_learned_time_embed
-        self.time_decoder = TimeDecoder(num_layers, d, num_heads, ffn_dim)
-        self.decoder = PosDecoder(num_layers, d, num_heads, ffn_dim)
+        self.time_decoder = TimeDecoder(num_layers, d, num_heads, ffn_dim, dropout)
+        self.decoder = PosDecoder(num_layers, d, num_heads, ffn_dim, dropout=dropout)
 
-    def forward(self, encoded: dict, init_spatial_query, init_temporal_query, time_mask):
+    def forward(self, encoded: dict, init_spatial_query, init_temporal_query, time_mask,
+                rng=None):
         h = encoded["encoded"]                                 # [V, T, S, d]
         V, T, S, d = h.shape
         hw, L = encoded["hw"], encoded["text_len"]
         vis_pos, vis_mask, text_mask = (encoded["vis_pos"], encoded["vis_mask"],
                                         encoded["text_mask"])
 
-        x = torch.relu(self.pos_fc_linear(self.pos_fc_ln1(encoded["frames_cls"])))
+        # LN -> dropout (fixed 0.1, as in the JAX package) -> linear -> relu -> LN
+        x = dropout(self.pos_fc_ln1(encoded["frames_cls"]), 0.1, rng)
+        x = torch.relu(self.pos_fc_linear(x))
         init_boxes = torch.sigmoid(self.pos_fc_ln2(x))        # [V, T, 4]
 
         if self.use_learned_time_embed:
@@ -186,8 +200,9 @@ class QueryDecoder(nn.Module):
         mask_s = torch.cat([vis_mask, text_mask], dim=1)[:, None].expand(V, T, hw + L)
 
         tgt_t = init_temporal_query[:, None].expand(V, T, d)
-        outputs_time = self.time_decoder(tgt_t, query_time, mem_t, pos_t, mask_t, time_mask)
+        outputs_time = self.time_decoder(tgt_t, query_time, mem_t, pos_t, mask_t, time_mask,
+                                         rng)
         tgt_s = init_spatial_query[:, None].expand(V, T, d)
         outputs_pos = self.decoder(tgt_s, init_boxes, query_time, mem_s, pos_s, mask_s,
-                                   time_mask)
+                                   time_mask, rng)
         return outputs_pos, outputs_time

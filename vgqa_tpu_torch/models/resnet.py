@@ -6,7 +6,11 @@ JAX module; inside, the trunk runs NCHW tensors in the channels_last memory
 format, which is what cuDNN's tensor-core convolutions want. Inference
 BatchNorm is a per-channel affine (``FrozenAffine``) that the forward folds
 into the preceding convolution (scaled weights, its bias as the conv bias),
-so it costs no pass over the activations; XLA fuses it the same way.
+so it costs no pass over the activations; XLA fuses it the same way. The
+fold is a product of parameters, so gradients reach the conv weights in
+training; the stem, ``layer1`` and every ``FrozenAffine`` are frozen by the
+optimizer's labels (``training/optimizer.py``), which also turn their
+``requires_grad`` off.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .remat import remat_call
 
 
 class FrozenAffine(nn.Module):
@@ -81,10 +87,11 @@ class ResNetBackbone(nn.Module):
     """ResNet-50/101 trunk returning the final stage feature map."""
 
     def __init__(self, depths: Sequence[int] = (3, 4, 23, 3), dilation: bool = False,
-                 width: int = 64, norm: str = "frozen"):
+                 width: int = 64, norm: str = "frozen", remat: bool = False):
         super().__init__()
         self.depths = tuple(depths)
         self.width = width
+        self.remat = remat                # per-bottleneck gradient checkpointing
         self.conv1 = _conv(3, width, 7, 2)
         self.bn1 = _make_norm(norm, width)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -111,11 +118,15 @@ class ResNetBackbone(nn.Module):
         x = self.maxpool(torch.relu(_conv_norm(self.conv1, self.bn1, x)))
         for stage, blocks in enumerate(self.depths):
             for b in range(blocks):
-                x = getattr(self, f"layer{stage + 1}_{b}")(x)
+                block = getattr(self, f"layer{stage + 1}_{b}")
+                if self.remat and torch.is_grad_enabled():
+                    x = remat_call(block, x)
+                else:
+                    x = block(x)
         return x.permute(0, 2, 3, 1)
 
 
-def build_resnet(name: str, dilation: bool = False) -> ResNetBackbone:
+def build_resnet(name: str, dilation: bool = False, remat: bool = False) -> ResNetBackbone:
     """Backbone zoo; a "-gn" suffix selects GroupNorm32."""
     norm = "frozen"
     if name.endswith("-gn"):
@@ -127,7 +138,8 @@ def build_resnet(name: str, dilation: bool = False) -> ResNetBackbone:
         "resnet_test": (1, 1, 1, 1),
     }[name]
     width = 64 if name != "resnet_test" else 8
-    return ResNetBackbone(depths=depths, dilation=dilation, width=width, norm=norm)
+    return ResNetBackbone(depths=depths, dilation=dilation, width=width, norm=norm,
+                          remat=remat)
 
 
 def downsample_mask(pixel_mask: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

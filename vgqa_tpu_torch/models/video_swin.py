@@ -1,13 +1,16 @@
-"""Video Swin Transformer 3D for serving (counterpart of the parameter tree of
-``vgqa_tpu/models/video_swin.py:VideoSwinBackbone`` and of its serving
+"""Video Swin Transformer 3D (counterpart of the parameter tree of
+``vgqa_tpu/models/video_swin.py:VideoSwinBackbone`` and of its kernel
 forward ``fused_backbone_apply``).
 
 Layout is channels-last ``[B, D, H, W, C]``. The forward pads each stage once
 to window multiples and runs every block through ``swin_block_canvas`` on
 that canvas: the block reads windows of ``roll(canvas, -shift)`` and writes
 in the rolled frame, consecutive blocks' rolls compose, and the frame
-unrolls once at the stage end. The per-block module path of the JAX package
-(``SwinBlock3D``, the differentiable one) waits for the training slice.
+unrolls once at the stage end. Training passes DropPath branch gates
+``[blocks, B, 2]`` (0 or 1/keep per sample and branch); the tower is frozen
+there and runs without gradient, as the JAX package runs its kernel path
+(the kernel has no backward). A tower that trains runs the blocks' plain
+version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -100,12 +103,13 @@ class VideoSwinConfig:
     num_heads: Sequence[int] = (3, 6, 12, 24)
     window: Tuple3 = (8, 7, 7)
     mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
     patch_norm: bool = True
 
     @classmethod
     def tiny_test(cls) -> "VideoSwinConfig":
         return cls(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(2, 2, 2, 2),
-                   window=(2, 2, 2))
+                   window=(2, 2, 2), drop_path_rate=0.0)
 
 
 VIDEO_SWIN_CONFIGS: Dict[str, VideoSwinConfig] = {
@@ -194,7 +198,22 @@ class VideoSwinBackbone(nn.Module):
         bias = table[index.reshape(-1)].reshape(n, n, heads)
         return bias.permute(2, 0, 1).contiguous()
 
-    def forward(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def drop_path_gates(self, rng, batch: int, device) -> Optional[torch.Tensor]:
+        """DropPath branch gates [blocks, batch, 2] for one training step:
+        keep = 1 - linspace(0, drop_path_rate, blocks), Bernoulli(keep) /
+        keep (the JAX package's sampling); None when the rate is 0."""
+        c = self.cfg
+        if c.drop_path_rate <= 0:
+            return None
+        total = sum(c.depths)
+        keep = torch.from_numpy(1.0 - np.linspace(0.0, c.drop_path_rate, total)).float()
+        keep = keep.to(device)[:, None, None].expand(total, batch, 2)
+        return rng.bernoulli(keep).float() / keep
+
+    def forward(self, frames: torch.Tensor, gates: Optional[torch.Tensor] = None,
+                use_kernels: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """``gates`` [blocks, B, 2] DropPath branch gates (training);
+        ``use_kernels`` overrides the module's route for this call."""
         c = self.cfg
         _, ph, pw = c.patch_size
         B, T, H, W, _ = frames.shape
@@ -207,8 +226,11 @@ class VideoSwinBackbone(nn.Module):
         if c.patch_norm:
             x = self.patch_norm(x)
 
-        block = swin_block_canvas if self.use_kernels else swin_block_canvas_reference
+        if use_kernels is None:
+            use_kernels = self.use_kernels
+        block = swin_block_canvas if use_kernels else swin_block_canvas_reference
         out: Dict[str, torch.Tensor] = {}
+        blk_base = 0
         for stage, depth in enumerate(c.depths):
             _, D_, H_, W_, _ = x.shape
             window, _ = _adjust_window((D_, H_, W_), c.window, (0, 0, 0))
@@ -238,11 +260,13 @@ class VideoSwinBackbone(nn.Module):
                     blk.mlp_fc2.weight.t(), blk.mlp_fc2.bias,
                     self._block_bias(blk, N, c.num_heads[stage]),
                     c.num_heads[stage], window, rel, region=region, valid=valid,
+                    gates=None if gates is None else gates[blk_base + b],
                 )
                 frame = shift
             if any(frame):
                 x = torch.roll(x, shifts=frame, dims=(1, 2, 3))
             x = x[:, :D_, :H_, :W_]
+            blk_base += depth
             out[str(stage)] = x
             if stage < len(c.depths) - 1:
                 x = getattr(self, f"downsample{stage}")(x)

@@ -1,22 +1,30 @@
 """VSTGNet, the spatio-temporal video grounding model (counterpart of
-``vgqa_tpu/models/vstgnet.py``), for serving.
+``vgqa_tpu/models/vstgnet.py``), for serving and training.
 
 Frame selection stays a boolean ``select_mask`` (frames above theta, else
 every valid frame) with masked means, and inference runs the static second
 pass (re-selection from the actioness head and a second decode), as in the
 JAX model. The Swin tower runs ``swin_block_canvas`` per block and the
-encoder's per-frame self-attention runs ``window_attention`` when
-``use_pallas_attention`` is set: CUDA tensors launch the hand-written
-kernels, CPU tensors run their plain versions.
+encoder's per-frame self-attention runs ``window_attention`` (eval) or
+``flash_mha_train`` (training) when ``use_pallas_attention`` is set: CUDA
+tensors launch the hand-written kernels, CPU tensors run their plain
+versions.
+
+Training (``train=True`` with a ``DropoutRng``) follows the JAX train
+branch: dropout everywhere the JAX modules have it, the frozen Swin tower
+without gradient and with DropPath gates, ``detach`` where JAX has
+``stop_gradient``, no second pass, and ``aux_outputs`` per decoder layer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ..ops.dropout import DropoutRng
 from ..ops.position_encoding import sine_position_2d, sine_position_hw_2d
 from ..utils.containers import TextBatch, VideoBatch
 from .decoder import QueryDecoder
@@ -34,6 +42,7 @@ class GroundingConfig:
     enc_layers: int = 6
     dec_layers: int = 6
     ffn_dim: int = 2048
+    dropout: float = 0.1
     theta: float = 0.45              # frame-selection threshold
     app_num: int = 20
     mot_num: int = 34
@@ -44,8 +53,12 @@ class GroundingConfig:
     pos_enc: str = "sine"            # sine | sineHW | learned
     swin: str = "video_swin_t_p4w7"  # "" selects the stub tower
     swin_feature_dim: int = 768
+    freeze_swin: bool = True
+    freeze_text: bool = False
     text: RobertaConfig = field(default_factory=RobertaConfig)
+    use_aux_loss: bool = True
     use_pallas_attention: bool = False
+    remat: bool = False              # per-layer gradient checkpointing
 
     @classmethod
     def from_cfg(cls, cfg) -> "GroundingConfig":
@@ -53,17 +66,20 @@ class GroundingConfig:
         text = RobertaConfig.tiny() if m.TEXT_MODEL.NUM_LAYERS else RobertaConfig()
         return cls(
             hidden=m.VSTG.HIDDEN, heads=m.VSTG.HEADS, enc_layers=m.VSTG.ENC_LAYERS,
-            dec_layers=m.VSTG.DEC_LAYERS, ffn_dim=m.VSTG.FFN_DIM,
+            dec_layers=m.VSTG.DEC_LAYERS, ffn_dim=m.VSTG.FFN_DIM, dropout=m.VSTG.DROPOUT,
             app_num=cfg.DATASET.APP_NUM, mot_num=cfg.DATASET.MOT_NUM,
             video_max_len=cfg.INPUT.MAX_VIDEO_LEN,
             use_learned_time_embed=m.VSTG.USE_LEARN_TIME_EMBED,
             resnet=m.VISION_BACKBONE.NAME, resnet_dilation=m.VISION_BACKBONE.DILATION,
             pos_enc=m.VISION_BACKBONE.POS_ENC,
             swin=m.VIDEO_SWIN.MODEL_NAME if m.VIDEO_SWIN.ENABLED else "",
-            swin_feature_dim=m.VIDEO_SWIN.FEATURE_DIM, text=text,
+            swin_feature_dim=m.VIDEO_SWIN.FEATURE_DIM,
+            freeze_swin=m.VIDEO_SWIN.FREEZE, freeze_text=m.TEXT_MODEL.FREEZE, text=text,
+            use_aux_loss=cfg.SOLVER.USE_AUX_LOSS,
             # the JAX package's rule: sequence parallelism (MESH_SP > 1)
             # turns the kernel routes off
             use_pallas_attention=cfg.TPU.USE_PALLAS_ATTENTION and cfg.TPU.MESH_SP <= 1,
+            remat=cfg.TPU.REMAT,
         )
 
     @classmethod
@@ -104,50 +120,68 @@ class VSTGNet(nn.Module):
     def __init__(self, cfg: GroundingConfig):
         super().__init__()
         self.cfg = c = cfg
-        self.vis_encoder = build_resnet(c.resnet, c.resnet_dilation)
+        self.vis_encoder = build_resnet(c.resnet, c.resnet_dilation, remat=c.remat)
         if c.swin:
             self.vid = VideoSwinBackbone(VIDEO_SWIN_CONFIGS[c.swin],
                                          use_kernels=c.use_pallas_attention)
         else:
             self.vid_stub = SwinStub(c.swin_feature_dim)
-        self.text_encoder = TextEncoder(c.text, out_dim=c.hidden)
+        self.text_encoder = TextEncoder(c.text, out_dim=c.hidden, freeze=c.freeze_text)
         self.input_proj = nn.Linear(self.vis_encoder.num_channels, c.hidden)
         self.input_proj2 = nn.Linear(c.swin_feature_dim, c.hidden)
         self.ground_encoder = CrossModalEncoder(c.hidden, c.enc_layers, c.heads,
-                                                c.ffn_dim, use_flash=c.use_pallas_attention)
+                                                c.ffn_dim, use_flash=c.use_pallas_attention,
+                                                dropout=c.dropout, remat=c.remat)
         self.s_temporal_clas = TemporalSampling(c.hidden)
         self.t_temporal_clas = TemporalSampling(c.hidden)
         self.s_spatial_clas = SpatialActivation(c.hidden, c.app_num)
         self.t_spatial_clas = SpatialActivation(c.hidden, c.mot_num)
         self.ground_decoder = QueryDecoder(c.hidden, c.dec_layers, c.heads, c.ffn_dim,
-                                           c.video_max_len, c.use_learned_time_embed)
-        self.temp_embed = MLP(c.hidden, c.hidden, 2, 2)
-        self.action_embed = MLP(c.hidden, c.hidden, 1, 2)
+                                           c.video_max_len, c.use_learned_time_embed,
+                                           c.dropout)
+        self.temp_embed = MLP(c.hidden, c.hidden, 2, 2, dropout=0.3)
+        self.action_embed = MLP(c.hidden, c.hidden, 1, 2, dropout=0.3)
         if c.pos_enc == "learned":
             self.pos_embed_2d = LearnedPosition2D(c.hidden // 2)
         elif c.pos_enc not in ("sine", "sineHW"):
             raise ValueError(f"not supported POS_ENC: {c.pos_enc}")
 
-    def forward(self, video: VideoBatch, text: TextBatch) -> dict:
+    def forward(self, video: VideoBatch, text: TextBatch, train: bool = False,
+                rng: Optional[DropoutRng] = None) -> dict:
+        """Eval (``train=False``, deterministic) or one training forward
+        (``train=True``, with the step's ``rng``)."""
         c = self.cfg
+        if train and rng is None:
+            raise ValueError("a training forward needs the step's DropoutRng")
+        if not train:
+            rng = None
         V, T, H, W, _ = video.frames.shape
         res_feat = self.vis_encoder(video.frames.reshape(V * T, H, W, 3))
         h_, w_ = res_feat.shape[1:3]
         if c.swin:
             last_stage = str(len(VIDEO_SWIN_CONFIGS[c.swin].depths) - 1)
-            swin_out = self.vid(video.frames)[last_stage]
+            gates = None if rng is None else self.vid.drop_path_gates(rng, V, video.frames.device)
+            if train and not c.freeze_swin:
+                swin_out = self.vid(video.frames, gates, use_kernels=False)[last_stage]
+            else:
+                # the reference runs its frozen Swin without gradient
+                with torch.no_grad():
+                    swin_out = self.vid(video.frames, gates)[last_stage]
         else:
             swin_out = self.vid_stub(video.frames)
+            if c.freeze_swin:
+                swin_out = swin_out.detach()
         if swin_out.shape[2:4] != (h_, w_):
             raise ValueError(f"tower misalignment: resnet {h_}x{w_} vs swin "
                              f"{swin_out.shape[2]}x{swin_out.shape[3]}")
-        text_tokens, _ = self.text_encoder(text.token_ids, text.mask)
+        text_tokens, _ = self.text_encoder(text.token_ids, text.mask, rng)
         return self.forward_from_towers(
             res_feat.reshape(V, T, h_, w_, -1), swin_out, text_tokens,
-            video.pixel_mask, text.mask, video.time_mask)
+            video.pixel_mask, text.mask, video.time_mask, train=train, rng=rng)
 
     def forward_from_towers(self, res_feat, swin_out, text_tokens, pixel_mask,
-                            text_mask, time_mask) -> dict:
+                            text_mask, time_mask, train: bool = False,
+                            rng: Optional[DropoutRng] = None) -> dict:
         """The grounding head chain from tower features to predictions.
 
         res_feat [V, T, h, w, Cr], swin_out [V, T, h, w, Cs], text_tokens
@@ -169,15 +203,17 @@ class VSTGNet(nn.Module):
         vis_mask = feat_mask.reshape(V, h_ * w_)
 
         enc = self.ground_encoder(vis_tokens, swin_tokens, text_tokens, vis_pos,
-                                  vis_mask, text_mask, time_mask)
+                                  vis_mask, text_mask, time_mask, rng)
         hw, L = enc["hw"], enc["text_len"]
         encoded = enc["encoded"]
         enc_vis = encoded[:, :, :hw]
         enc_swin = encoded[:, :, hw + L:]
-        f_text = masked_mean(encoded[:, :, hw:hw + L], time_mask, 1)   # [V, L, d]
+        # the classifiers read detached features (stop_gradient in JAX)
+        f_vis, f_swin = enc_vis.detach(), enc_swin.detach()
+        f_text = masked_mean(encoded[:, :, hw:hw + L], time_mask, 1).detach()   # [V, L, d]
 
-        logits_f_m = self.t_temporal_clas(enc_swin, f_text, text_mask)
-        logits_f_a = self.s_temporal_clas(enc_vis, f_text, text_mask)
+        logits_f_m = self.t_temporal_clas(f_swin, f_text, text_mask, rng)
+        logits_f_a = self.s_temporal_clas(f_vis, f_text, text_mask, rng)
         att_seq = (torch.sigmoid(logits_f_m) + torch.sigmoid(logits_f_a)) / 2
 
         def selection_from(scores, thr):
@@ -185,25 +221,26 @@ class VSTGNet(nn.Module):
             return torch.where(sel.any(dim=-1, keepdim=True), sel, time_mask)
 
         def activation_and_queries(sel_mask):
-            logits_r_m, att_map_t = self.t_spatial_clas(enc_swin, f_text[:, :1], sel_mask)
-            logits_r_a, att_map_s = self.s_spatial_clas(enc_vis, f_text[:, :1], sel_mask)
+            logits_r_m, att_map_t = self.t_spatial_clas(f_swin, f_text[:, :1], sel_mask, rng)
+            logits_r_a, att_map_s = self.s_spatial_clas(f_vis, f_text[:, :1], sel_mask, rng)
             itq = masked_mean(enc_swin * att_map_t[..., None], sel_mask, (1, 2))
             isq = masked_mean(enc_vis * att_map_s[..., None], sel_mask, (1, 2))
             return logits_r_m, logits_r_a, itq, isq
 
         select_mask = selection_from(att_seq, c.theta)
         logits_r_m, logits_r_a, itq, isq = activation_and_queries(select_mask)
-        outputs_pos, outputs_time = self.ground_decoder(enc, isq, itq, time_mask)
+        outputs_pos, outputs_time = self.ground_decoder(enc, isq, itq, time_mask, rng)
 
-        # inference-time re-selection from the actioness head and a second decode
-        act = torch.sigmoid(self.action_embed(outputs_time[-1])[..., 0])
-        select_mask = selection_from(act, 0.5)
-        logits_r_m, logits_r_a, itq, isq = activation_and_queries(select_mask)
-        outputs_pos, outputs_time = self.ground_decoder(enc, isq, itq, time_mask)
+        if not train:
+            # inference-time re-selection from the actioness head and a second decode
+            act = torch.sigmoid(self.action_embed(outputs_time[-1])[..., 0])
+            select_mask = selection_from(act, 0.5)
+            logits_r_m, logits_r_a, itq, isq = activation_and_queries(select_mask)
+            outputs_pos, outputs_time = self.ground_decoder(enc, isq, itq, time_mask)
 
-        sted = self.temp_embed(outputs_time)
-        actioness = self.action_embed(outputs_time)
-        return {
+        sted = self.temp_embed(outputs_time, rng)
+        actioness = self.action_embed(outputs_time, rng)
+        out = {
             "pred_boxes": outputs_pos[-1],        # [V, T, 4] cxcywh sigmoid
             "pred_sted": sted[-1],                # [V, T, 2]
             "pred_actioness": actioness[-1],      # [V, T, 1]
@@ -214,3 +251,10 @@ class VSTGNet(nn.Module):
             "att_sequences": att_seq,             # [V, T]
             "select_mask": select_mask,           # [V, T]
         }
+        if c.use_aux_loss:
+            out["aux_outputs"] = [
+                {"pred_boxes": outputs_pos[i], "pred_sted": sted[i],
+                 "pred_actioness": actioness[i]}
+                for i in range(outputs_pos.shape[0] - 1)
+            ]
+        return out

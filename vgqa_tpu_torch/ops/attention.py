@@ -8,7 +8,7 @@ True = attend; masked logits get ``NEG_INF``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,6 +35,7 @@ def dot_product_attention(
     key_mask: Optional[torch.Tensor] = None,
     attn_bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    dropout_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     return_probs: bool = False,
 ):
     """Scaled dot-product attention over pre-projected q/k/v.
@@ -42,8 +43,10 @@ def dot_product_attention(
     q: [..., Lq, Dqk], k: [..., Lk, Dqk], v: [..., Lk, Dv]
     key_mask: [..., Lk] bool (True = valid) or [..., Lq, Lk]
     attn_bias: broadcastable to [..., H, Lq, Lk]
+    dropout_fn: applied to the probabilities before the value product (train)
 
-    Returns out [..., Lq, Dv], and probs [..., H, Lq, Lk] if requested."""
+    Returns out [..., Lq, Dv], and probs [..., H, Lq, Lk] (before dropout)
+    if requested."""
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
     vh = split_heads(v, num_heads)
@@ -59,7 +62,8 @@ def dot_product_attention(
             m = key_mask[..., None, :, :]
         logits = logits.masked_fill(~m, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.matmul(probs.float(), vh.float()).to(q.dtype)
+    weights = dropout_fn(probs) if dropout_fn is not None else probs
+    out = torch.matmul(weights.float(), vh.float()).to(q.dtype)
     out = merge_heads(out)
     if return_probs:
         return out, probs

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded through ``ctypes``. The build happens at first use, into
+Each source compiles with its own ``nvcc`` (all started together), and the
+objects link into one shared library with a plain C interface, loaded
+through ``ctypes``. The build happens at first use, into
 ``csrc/build/`` (git-ignored), under a name keyed by the sources' hash, so
 an edited source rebuilds and an unchanged one loads at once. Nothing here
 runs at import time: the CPU tests import every module of the package on a
@@ -27,8 +28,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
-# argtypes of every C entry point in csrc/kernels.cu
+# argtypes of every C entry point in csrc/*.cu
 _SIGNATURES = {
     "vgqa_window_attention": [_P, _P, _P, _P, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L,
@@ -36,6 +38,9 @@ _SIGNATURES = {
     "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
     "vgqa_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                        _P, _L, _P, _P, _I, _L, _P],
+    "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
+    "vgqa_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -63,6 +68,39 @@ def _arch_flag() -> str:
     return f"arch=compute_{cc},code=sm_{cc}"
 
 
+def _compile(sources, arch: str, path: str) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    flags = ["-gencode", arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sources:
+        if src.endswith(".cu"):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            jobs.append((obj, subprocess.Popen(
+                [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {obj}:\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([_nvcc(), *flags, "-shared", "-o", tmp,
+                               *[obj for obj, _ in jobs]], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
+    build_log.update(seconds=time.perf_counter() - t0, ptxas="".join(logs))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
@@ -78,16 +116,7 @@ def load_library() -> ctypes.CDLL:
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"libvgqa_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", arch, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-               *[s for s in sources if s.endswith(".cu")]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
-        build_log.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr)
+        _compile(sources, arch, path)
     build_log["path"] = path
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():

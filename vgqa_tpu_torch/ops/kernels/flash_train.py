@@ -1,0 +1,299 @@
+"""Differentiable attention with probability dropout, for training (K3).
+
+Replaces ``vgqa_tpu/ops/pallas/flash_train.py:flash_mha_train`` (the custom
+VJP over the Pallas ``_fwd_kernel`` and ``_bwd_kernel``). Per folded row
+b = (lead index, head) of q/k/v ``[..., L, H*dh]``::
+
+    S = q k^T * scale, keys with mask False -> -1e30
+    lse = m + log(l)                     (m = row max, l = sum exp(S - m))
+    O = (keep * exp(S - m) / (1 - rate)) v / max(l, 1e-30)
+
+and the backward recomputes P = exp(S - lse) from (q, k, lse), regenerates
+the keep mask, and gives dq, dk, dv with delta = rowsum(dO * O) (O as
+stored in the input dtype), dS = P (dP - delta) scale.
+
+The dropout keep mask is a pure function keep(seed + b, i, j): Philox4x32-10
+keyed by (seed + b, 0), counter (i, j, 0, 0), the top 24 bits of the first
+output word >= ceil(f32(rate) * 2^24) (the threshold of the Pallas
+``_keep_mask``). The TPU's hardware bits cannot be reproduced; this
+definition is written once in CUDA and once in torch integer ops
+(:func:`keep_mask`), so the kernel and the plain version draw bit-identical
+masks.
+
+On the H100 (``csrc/flash_train.cu``): at the training path's shapes (512
+rows = 64 frames x 8 heads, L = 124 or 418, dh = 32) the work is small
+against the bytes (2*L*32 multiply-adds per query-key pair vs. reading
+q/k/v/dO once), so the kernels are bound by memory traffic and launch time
+as long as the [L, L] logits, probabilities and dropout mask stay out of
+device memory: a plain version writes and re-reads all three per head. The
+kernels keep them in registers: one block per (row, tile of 64
+queries or keys), keys or queries streaming through shared memory in blocks
+of 64 as bf16, S and dP on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulation), the keep mask regenerated from Philox in registers. The
+backward is three launches (delta; dq per query tile; dk and dv per key
+tile, looping over the queries), with one writer per output element, so
+results do not vary between runs. The port pads nothing (Pallas pads L and
+dh to 128): the kernels mask the ragged edge. ``wgmma``/TMA is later work.
+
+``flash_mha_train`` launches the kernels for CUDA tensors (bf16 only) and
+runs the plain version for CPU tensors (f32 or bf16); anything else raises.
+``flash_mha_train.fwd_launches`` / ``.bwd_launches`` count the launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+MAX_SEQ_PAD = 1024       # the Pallas kernel's full-S block limit
+HEAD_DIM = 32            # the kernels' head dim (every caller on the path)
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def supported_seq(Lq: int, Lk: int) -> bool:
+    """The JAX route's rule (full-S Pallas block fits scoped VMEM); the port
+    keeps it so both packages route the same calls to the kernel."""
+    return _round_up(Lq, 128) <= MAX_SEQ_PAD and _round_up(Lk, 128) <= MAX_SEQ_PAD
+
+
+def keep_threshold(rate: float) -> int:
+    """Integer threshold on the top 24 bits: ``(bits >> 8) >= t`` equals the
+    Pallas test ``(bits >> 8) * 2^-24 >= rate`` with rate in float32."""
+    return min(1 << 24, max(0, math.ceil(float(np.float32(rate)) * (1 << 24))))
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit halves of a * m for int64 tensors holding uint32
+    values, in 16-bit pieces so that nothing overflows int64."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    mid = a_hi * m_lo + a_lo * m_hi
+    t = a_lo * m_lo + ((mid & 0xFFFF) << 16)
+    return (a_hi * m_hi + (mid >> 16) + (t >> 32)) & _MASK32, t & _MASK32
+
+
+def _philox_word(key: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """First output word of Philox4x32-10, key (key, 0), counter (i, j, 0, 0)."""
+    shape = torch.broadcast_shapes(key.shape, i.shape, j.shape)
+    c0, c1 = i.expand(shape), j.expand(shape)
+    c2 = c3 = torch.zeros(shape, dtype=torch.int64, device=i.device)
+    k0, k1 = key, 0
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W0) & _MASK32, (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0
+
+
+def keep_mask(seed: int, rows: int, Lq: int, Lk: int, rate: float,
+              device=None) -> torch.Tensor:
+    """The kernels' keep mask [rows, Lq, Lk] (True = keep) for folded rows
+    0..rows-1, drawn with torch integer ops in chunks of rows."""
+    thresh = keep_threshold(rate)
+    out = torch.empty((rows, Lq, Lk), dtype=torch.bool, device=device)
+    i = torch.arange(Lq, dtype=torch.int64, device=device)[None, :, None]
+    j = torch.arange(Lk, dtype=torch.int64, device=device)[None, None, :]
+    chunk = max(1, (1 << 22) // (Lq * Lk))
+    for r in range(0, rows, chunk):
+        n = min(chunk, rows - r)
+        key = ((int(seed) + r + torch.arange(n, dtype=torch.int64, device=device))
+               & _MASK32)[:, None, None]
+        out[r:r + n] = (_philox_word(key, i, j) >> 8) >= thresh
+    return out
+
+
+def flash_train_fwd_reference(q, k, v, key_mask, seed: int, rate: float,
+                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward on folded rows (the math of the Pallas ``_fwd_kernel``):
+    q [B, Lq, dh], k/v [B, Lk, dh], key_mask [B, Lk] bool or None.
+    Returns (out [B, Lq, dh] in q's dtype, lse [B, Lq] f32)."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    lse = m + torch.log(l)
+    if rate > 0.0:
+        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate))
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype), lse
+
+
+def flash_train_bwd_reference(q, k, v, o, do, lse, key_mask, seed: int, rate: float,
+                              scale: float):
+    """Plain backward on folded rows (the math of the Pallas ``_bwd_kernel``).
+    Returns (dq, dk, dv) in the input dtypes."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, :], s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    pw = p
+    if rate > 0.0:
+        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+        inv = 1.0 / (1.0 - rate)
+        dp = torch.where(keep, dp, 0.0) * inv
+        pw = torch.where(keep, p, 0.0) * inv
+    delta = (do.float() * o.float()).sum(-1)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+    dv = torch.matmul(pw.to(do.dtype).float().transpose(1, 2), do.float()).to(v.dtype)
+    dq = torch.matmul(ds.float(), k.float()).to(q.dtype)
+    dk = torch.matmul(ds.float().transpose(1, 2), q.float()).to(k.dtype)
+    return dq, dk, dv
+
+
+def fold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[W, L, H*dh] -> [W*H, L, dh] (row w*H + h), the JAX wrapper's fold."""
+    W, L, C = x.shape
+    return x.reshape(W, L, heads, C // heads).transpose(1, 2).reshape(W * heads, L, C // heads)
+
+
+def unfold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[W*H, L, dh] -> [W, L, H*dh]"""
+    B, L, dh = x.shape
+    return x.reshape(B // heads, heads, L, dh).transpose(1, 2).reshape(B // heads, L, heads * dh)
+
+
+def _check_cuda(q, k, v, mask, heads: int) -> None:
+    if q.dtype != torch.bfloat16:
+        raise TypeError("flash_mha_train kernel takes bfloat16 (train with "
+                        f"TPU.TRAIN_DTYPE bfloat16), not {q.dtype}")
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError("q, k and v must share dtype and device")
+    if q.shape[-1] != heads * HEAD_DIM or k.shape[-1] != q.shape[-1] or v.shape != k.shape:
+        raise ValueError(f"flash_mha_train kernel takes head dim {HEAD_DIM}: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"{heads} heads")
+    if mask is not None and tuple(mask.shape) != (q.shape[0], k.shape[1]):
+        raise ValueError(f"key mask {tuple(mask.shape)} != {(q.shape[0], k.shape[1])}")
+
+
+def _kernel_args(mask, seed: int, rate: float):
+    mask_u8 = None if mask is None else mask.to(torch.uint8).contiguous()
+    seed32 = int(np.int64(seed).astype(np.int32))
+    return (mask_u8, seed32, keep_threshold(rate), int(rate > 0.0),
+            float(np.float32(1.0 / (1.0 - rate))))
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"flash_mha_train runs on cpu or cuda, not {q.device}")
+    return q.device.type
+
+
+def flash_train_fwd(q, k, v, mask, seed: int, rate: float, scale: float, heads: int):
+    """Forward with heads packed: q [W, Lq, H*dh], k/v [W, Lk, H*dh], mask
+    [W, Lk] bool or None -> (out [W, Lq, H*dh], lse [W*H, Lq] f32). Launches
+    the kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    if _device_of(q) == "cpu":
+        maskf = None if mask is None else mask.repeat_interleave(heads, dim=0)
+        o, lse = flash_train_fwd_reference(fold_heads(q, heads), fold_heads(k, heads),
+                                           fold_heads(v, heads), maskf, seed, rate, scale)
+        return unfold_heads(o, heads), lse
+    _check_cuda(q, k, v, mask, heads)
+    W, Lq, _ = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((W * heads, Lq), dtype=torch.float32, device=q.device)
+    mask_u8, seed32, thresh, drop, inv = _kernel_args(mask, seed, rate)
+    build.check(build.load_library().vgqa_flash_train_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        build.ptr(mask_u8), W, Lq, k.shape[1], heads, float(scale), seed32,
+        thresh, drop, inv, build.stream_handle(q.device)), "flash_mha_train forward")
+    flash_mha_train.fwd_launches += 1
+    return o, lse
+
+
+def flash_train_bwd(q, k, v, o, do, lse, mask, seed: int, rate: float, scale: float,
+                    heads: int):
+    """Backward of :func:`flash_train_fwd` -> (dq, dk, dv) in the packed
+    layout and the input dtypes."""
+    do = do.to(q.dtype)
+    if _device_of(q) == "cpu":
+        maskf = None if mask is None else mask.repeat_interleave(heads, dim=0)
+        grads = flash_train_bwd_reference(
+            fold_heads(q, heads), fold_heads(k, heads), fold_heads(v, heads),
+            fold_heads(o, heads), fold_heads(do, heads), lse, maskf, seed, rate, scale)
+        return tuple(unfold_heads(g, heads) for g in grads)
+    _check_cuda(q, k, v, mask, heads)
+    W, Lq, _ = q.shape
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((W * heads, Lq), dtype=torch.float32, device=q.device)
+    mask_u8, seed32, thresh, drop, inv = _kernel_args(mask, seed, rate)
+    build.check(build.load_library().vgqa_flash_train_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.contiguous().data_ptr(), delta.data_ptr(), build.ptr(mask_u8), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), W, Lq, k.shape[1], heads, float(scale), seed32,
+        thresh, drop, inv, build.stream_handle(q.device)), "flash_mha_train backward")
+    flash_mha_train.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashTrain(torch.autograd.Function):
+    """Heads packed: q [W, Lq, H*dh], k/v [W, Lk, H*dh], mask [W, Lk]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, rate, scale, heads):
+        o, lse = flash_train_fwd(q, k, v, mask, seed, rate, scale, heads)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
+        ctx.args = (seed, rate, scale, heads)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        dq, dk, dv = flash_train_bwd(q, k, v, o, do, lse, mask, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_mha_train(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Differentiable attention with probability dropout (the JAX signature
+    and layout): q [..., Lq, H*dh], k/v [..., Lk, H*dh], key_mask [..., Lk]
+    True = attend; ``seed`` an int (int32 range) drawn per call site and
+    step. Heads fold into the batch; folded row b draws keep(seed + b, i, j)."""
+    *lead, Lq, dim = q.shape
+    Lk = k.shape[-2]
+    dh = dim // num_heads
+    if dim % num_heads:
+        raise ValueError(f"{dim} channels do not split into {num_heads} heads")
+    if scale is None:
+        scale = dh ** -0.5
+    W = int(np.prod(lead)) if lead else 1
+    mask = None
+    if key_mask is not None:
+        mask = key_mask.to(torch.bool).expand(*lead, Lk).reshape(W, Lk)
+    out = _FlashTrain.apply(q.reshape(W, Lq, dim), k.reshape(W, Lk, dim),
+                            v.reshape(W, Lk, dim), mask, int(seed), float(dropout_rate),
+                            float(scale), num_heads)
+    return out.reshape(*lead, Lq, dim)
+
+
+flash_mha_train.fwd_launches = 0
+flash_mha_train.bwd_launches = 0

@@ -214,8 +214,9 @@ def swin_block_canvas(
     if canvas.device.type != "cuda":
         raise RuntimeError(f"swin_block_canvas runs on cpu or cuda, not {canvas.device}")
     if canvas.dtype != torch.bfloat16:
-        raise TypeError("swin_block_canvas kernel takes bfloat16 canvases "
-                        f"(serve with TPU.COMPUTE_DTYPE bfloat16), not {canvas.dtype}")
+        raise TypeError("swin_block_canvas kernel takes bfloat16 canvases (serve with "
+                        "TPU.COMPUTE_DTYPE bfloat16, train with TPU.TRAIN_DTYPE bfloat16), "
+                        f"not {canvas.dtype}")
     B, Dp, Hp, Wp, C = canvas.shape
     wd, wh, ww = (int(w) for w in window)
     if Dp % wd or Hp % wh or Wp % ww:
