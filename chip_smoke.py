@@ -34,7 +34,26 @@
    under torch.profiler (device busy share); then the loss and the global
    gradient norm of one step with the kernel routes on against the plain
    routes, from the same state with every dropout rate 0.
-6. Prints a JSON line with the kernel table, then, as the last line,
+6. Checks the QA kernels against their plain versions at the shapes of the
+   QA path: K4 flash_mha at [128, 1025, 64] (8 tiles x 16 heads, one ViT
+   call), unmasked and with a key mask; K5 flash_gqa_causal at H 32 / Hkv 8
+   / dh 128, Lq 1024, S 9216, length 8700, checked at q_offset 0 and 8192
+   and timed at all 9 chunk offsets of a 32-frame prefill; K6 int4_matmul
+   at the four projection shapes and M = 1, 2, 64, and its device time for
+   one int4 decode token (224 products at M = 1) under the profiler.
+7. Serves video QA at the full InternVideo2.5-Chat-8B geometry
+   (InternLM2.5-7B + InternViT-300M, random weights from seed 0, bf16,
+   max_seq_len 9216): 32 random uint8 448 px tiles, a ~8.7k-token prompt,
+   chunked prefill (9 chunks of 1024); one warm-up chat, a greedy chat of
+   32 tokens (ignore_eos) on the bf16 tree, the same after int4
+   quantization on the device, one sampled chat (temperature 0.2, top-p
+   0.9, seeded generator) and one chat_batch of 2 on the int4 tree;
+   checks answers, finite stats, the K4/K5/K6 launch counts per chat, the
+   last prompt token's logits with kernel routes on against the plain
+   routes for both trees (K4, K5), and one int4 decode step's logits with
+   routes on against plain (K6 against the half-matmul form); prints phase
+   times and peak memory.
+8. Prints a JSON line with the kernel table, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure raises (non-zero exit) before the last line is printed.
@@ -262,6 +281,196 @@ def check_flash_train(dev, g):
     return rows
 
 
+def check_flash_mha(dev, g):
+    """K4 at one InternViT call: 8 tiles x 16 heads, L = 1025, dh = 64, q/k/v
+    as slices of the fused qkv projection."""
+    from vgqa_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_reference
+
+    rows = []
+    T, L, H, D = 8, 1025, 16, 64
+    qkv = torch.randn(T, L, 3 * H * D, generator=g, device=dev).bfloat16()
+    q, k, v = qkv.split(H * D, dim=-1)
+    f32 = [t.float() for t in (q, k, v)]
+    for masked in (False, True):
+        mask = None
+        if masked:
+            mask = torch.rand(T, L, generator=g, device=dev) > 0.2
+            mask[:, 0] = True
+        out = flash_mha(q, k, v, H, key_mask=mask)
+        ref = flash_mha_reference(*f32, H, key_mask=mask)
+        torch.cuda.synchronize()
+        rel, mae = rel_err(out, ref)
+        del out, ref
+        ms = cuda_ms(lambda: flash_mha(q, k, v, H, key_mask=mask))
+        plain = cuda_ms(lambda: flash_mha_reference(*f32, H, key_mask=mask))
+
+        def heads(t):
+            return t.reshape(T, L, H, D).transpose(1, 2)
+
+        am = None if mask is None else mask[:, None, None, :]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v), attn_mask=am))
+        b_ms, b_by = bound(4.0 * T * H * L * L * D, 4 * T * L * H * D * 2 + T * L * int(masked))
+        rows.append({"masked": masked, "rel_err": rel, "max_abs_err": mae, "ms": ms,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"K4 flash_mha [128, 1025, 64] masked={masked}: rel_err {rel:.3e} max_abs_err "
+              f"{mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  sdpa {lib:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if not rel < REL_TOL:
+            raise AssertionError(f"flash_mha masked={masked}: rel_err {rel} >= {REL_TOL}")
+    return rows
+
+
+QA_CHUNKS = 9                # 32-frame prefill: Lp = 9216 in chunks of 1024
+
+
+def check_flash_gqa(dev, g):
+    """K5 at the 32-frame prefill: H 32, Hkv 8, dh 128, Lq 1024, S 9216,
+    length 8700; checked at q_offset 0 and 8192, timed at all 9 offsets."""
+    from vgqa_tpu_torch.ops.kernels.flash_attention import (
+        flash_gqa_causal, flash_gqa_causal_reference)
+
+    H, Hkv, Lq, S, D, length = 32, 8, 1024, 9216, 128, 8700
+    q = torch.randn(Lq, H, D, generator=g, device=dev).bfloat16().transpose(0, 1)
+    k, v = (torch.randn(Hkv, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
+    n = torch.tensor(length, device=dev)
+    f32 = [t.float() for t in (q, k, v)]
+    rows = []
+    for i in range(QA_CHUNKS):
+        off = i * Lq
+        rel = mae = None
+        if off in (0, 8192):
+            out = flash_gqa_causal(q, k, v, off, n)
+            ref = flash_gqa_causal_reference(*f32, off, n)
+            torch.cuda.synchronize()
+            rel, mae = rel_err(out, ref)
+            del out, ref
+            if not rel < REL_TOL:
+                raise AssertionError(f"flash_gqa_causal q_offset={off}: rel_err {rel} >= {REL_TOL}")
+        ms = cuda_ms(lambda: flash_gqa_causal(q, k, v, off, n))
+        plain = cuda_ms(lambda: flash_gqa_causal_reference(*f32, off, n), reps=2)
+        qpos = off + torch.arange(Lq, device=dev)
+        kpos = torch.arange(S, device=dev)
+        am = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < length)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=am, enable_gqa=True))
+        # operations over the keys this chunk's queries may see; bytes: q,
+        # out, and the K/V rows up to the causal frontier (and length)
+        valid = sum(min(off + r + 1, length) for r in range(Lq))
+        kread = min(off + Lq, length, S)
+        b_ms, b_by = bound(4.0 * H * D * valid, 2 * H * Lq * D * 2 + 2 * Hkv * kread * D * 2)
+        rows.append({"q_offset": off, "rel_err": rel, "max_abs_err": mae, "ms": ms,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"K5 flash_gqa_causal H32/Hkv8/dh128 Lq 1024 S 9216 len {length} q_offset {off}: "
+              + ("" if rel is None else f"rel_err {rel:.3e} max_abs_err {mae:.3e}  ")
+              + f"kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  sdpa {lib:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    del f32
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (K, N, name) of the seven projections of one InternLM2.5-7B layer
+QA_PROJ = [(4096, 4096, "q"), (4096, 1024, "k"), (4096, 1024, "v"), (4096, 4096, "o"),
+           (4096, 14336, "gate"), (4096, 14336, "up"), (14336, 4096, "down")]
+
+
+def int4_library(x, packed, scale):
+    """One PyTorch call computing the same product, if this torch has one:
+    ``_weight_int4pack_mm`` on a repacked copy (unsigned nibbles with
+    offset 8, bf16 scales, zero points 0); otherwise None."""
+    K, N = x.shape[1], packed.shape[1]
+    half = K // 2
+    n_g = scale.shape[0]
+    try:
+        lo, hi = (packed << 4) >> 4, packed >> 4
+        q = torch.cat([lo, hi], 0).to(torch.int32).t() + 8                # [N, K] in 0..15
+        u8 = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()  # [N, K/2]
+        w = torch._convert_weight_to_int4pack(u8, 8)
+        sz = torch.stack([scale, torch.zeros_like(scale)], -1).bfloat16().contiguous()
+        fn = (lambda: torch._weight_int4pack_mm(x, w, K // n_g, sz))
+        fn()
+        return fn
+    except (RuntimeError, AttributeError, TypeError) as e:
+        print(f"  int4 library call unavailable ({type(e).__name__}: {str(e)[:120]}); "
+              "timing torch.matmul on the dequantized bf16 weight instead")
+        return None
+
+
+def check_int4(dev, g):
+    """K6 at the seven projection shapes (four distinct) and M = 1, 2, 64."""
+    from vgqa_tpu_torch.ops.kernels.int4_matmul import (
+        int4_matmul, int4_matmul_kernel_applicable, int4_matmul_reference)
+    from vgqa_tpu_torch.qa.quant import dequantize_kernel_int4
+
+    rows = []
+    for K, N in sorted({(k, n) for k, n, _ in QA_PROJ}):
+        n_g = K // 128
+        packed = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+        scale = torch.rand(n_g, N, generator=g, device=dev) * 0.01
+        w_bf16 = dequantize_kernel_int4({"kernel_q4": packed, "scale4": scale}, torch.bfloat16)
+        for M in (1, 2, 64):
+            assert int4_matmul_kernel_applicable(M, K, N, n_g)
+            x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+            out = int4_matmul(x, packed, scale)
+            ref = int4_matmul_reference(x, packed, scale)
+            torch.cuda.synchronize()
+            rel, mae = rel_err(out, ref)
+            if not rel < REL_TOL:
+                raise AssertionError(f"int4_matmul {M}x{K}x{N}: rel_err {rel} >= {REL_TOL}")
+            ms = cuda_ms(lambda: int4_matmul(x, packed, scale))
+            plain = cuda_ms(lambda: int4_matmul_reference(x, packed, scale))
+            lib_fn = int4_library(x, packed, scale)
+            lib_name = "_weight_int4pack_mm"
+            if lib_fn is not None:
+                lrel = rel_err(lib_fn(), ref)[0]
+                if not lrel < REL_TOL:
+                    print(f"  _weight_int4pack_mm disagrees (rel {lrel:.2e}): not this "
+                          "function; timing torch.matmul on the dequantized bf16 weight")
+                    lib_fn = None
+            if lib_fn is None:
+                lib_name = "matmul_dequantized_bf16"
+                lib_fn = (lambda: torch.matmul(x, w_bf16))
+            lib = cuda_ms(lib_fn)
+            b_ms, b_by = bound(2.0 * M * K * N, K * N // 2 + n_g * N * 4 + M * K * 2 + M * N * 2)
+            rows.append({"M": M, "K": K, "N": N, "rel_err": rel, "max_abs_err": mae, "ms": ms,
+                         "plain_ms": plain, "library_ms": lib, "library": lib_name,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"K6 int4_matmul M={M} K={K} N={N}: rel_err {rel:.3e} max_abs_err {mae:.3e}  "
+                  f"kernel {ms:.4f} ms  plain {plain:.3f} ms  {lib_name} {lib:.4f} ms  "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+        del packed, scale, w_bf16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int4_token_device_ms(dev, g, layers=32):
+    """K6's device time for one int4 decode token: the seven projections of
+    each layer at M = 1, ``layers`` times, under torch.profiler (the CUDA
+    event times above include the host's launch cost)."""
+    from vgqa_tpu_torch.ops.kernels.int4_matmul import int4_matmul
+
+    ws = []
+    for K, N, _ in QA_PROJ:
+        packed = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+        ws.append((torch.randn(1, K, generator=g, device=dev).bfloat16(), packed,
+                   torch.rand(K // 128, N, generator=g, device=dev) * 0.01))
+
+    def token():
+        for _ in range(layers):
+            for x, packed, scale in ws:
+                int4_matmul(x, packed, scale)
+
+    token()
+    wall, busy, n, top = profile_step(token)
+    k6 = sum(us for name, us in top if "int4_matmul" in name) / 1e3
+    print(f"K6 one int4 decode token ({layers} x 7 products at M = 1) under the profiler: "
+          f"device {k6:.3f} ms in {n} launches, wall {wall:.2f} ms")
+    return k6
+
+
 def full_cfg(res: int, **overrides):
     from vgqa_tpu_torch.config import build_default_cfg
 
@@ -304,24 +513,29 @@ def set_kernel_routes(model, on: bool):
         getattr(model.ground_encoder, f"layer_{i}").self_attn.use_flash = on
 
 
-def reset_launches():
+def _counted():
+    from vgqa_tpu_torch.ops.kernels.flash_attention import flash_gqa_causal, flash_mha
     from vgqa_tpu_torch.ops.kernels.flash_train import flash_mha_train
+    from vgqa_tpu_torch.ops.kernels.int4_matmul import int4_matmul
     from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas
     from vgqa_tpu_torch.ops.kernels.window_attention import window_attention
 
-    swin_block_canvas.launches = window_attention.launches = 0
-    flash_mha_train.fwd_launches = flash_mha_train.bwd_launches = 0
+    return {"swin_block_canvas": (swin_block_canvas, "launches"),
+            "window_attention": (window_attention, "launches"),
+            "flash_mha_train.fwd": (flash_mha_train, "fwd_launches"),
+            "flash_mha_train.bwd": (flash_mha_train, "bwd_launches"),
+            "flash_mha": (flash_mha, "launches"),
+            "flash_gqa_causal": (flash_gqa_causal, "launches"),
+            "int4_matmul": (int4_matmul, "launches")}
+
+
+def reset_launches():
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    from vgqa_tpu_torch.ops.kernels.flash_train import flash_mha_train
-    from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas
-    from vgqa_tpu_torch.ops.kernels.window_attention import window_attention
-
-    return {"swin_block_canvas": swin_block_canvas.launches,
-            "window_attention": window_attention.launches,
-            "flash_mha_train.fwd": flash_mha_train.fwd_launches,
-            "flash_mha_train.bwd": flash_mha_train.bwd_launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counted().items()}
 
 
 def serve(dev, card):
@@ -365,7 +579,8 @@ def serve(dev, card):
           f"{t420:.3f} s/request, {2 / t420:.2f} clips/s  [{card}]")
     print(f"launches over {forwards} forwards: {launches}")
     if launches != {"swin_block_canvas": 12 * forwards, "window_attention": 6 * forwards,
-                    "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0}:
+                    "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0,
+                    "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}:
         raise AssertionError(f"expected 12 and 6 launches per forward, got {launches}")
     print("response 0:", json.dumps({"temporal": outs[0]["temporal"],
                                      "tube[0]": outs[0]["tube"][0]}))
@@ -483,7 +698,8 @@ def train(dev, card):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss {losses}")
     if launches != {"swin_block_canvas": 36, "window_attention": 0,
-                    "flash_mha_train.fwd": 18, "flash_mha_train.bwd": 18}:
+                    "flash_mha_train.fwd": 18, "flash_mha_train.bwd": 18,
+                    "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}:
         raise AssertionError(f"expected 12 / 6 / 6 launches per step, got {launches}")
     frozen_changed = [n for n, p in model.named_parameters()
                       if labels[n] == "frozen" and not torch.equal(p, before[n])]
@@ -542,6 +758,194 @@ def train(dev, card):
     return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches}
 
 
+def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
+    """One kernel-table entry of a QA kernel: ms / plain / bound / library
+    summed over ``unit_rows`` (the calls of one unit of work) x ``repeat``."""
+    def total(key):
+        return repeat * sum(r[key] for r in unit_rows)
+
+    return {"name": name, "route": "cuda",
+            "source": ("vgqa_tpu_torch/csrc/int4_matmul.cu" if name == "int4_matmul"
+                       else "vgqa_tpu_torch/csrc/flash_attention.cu"),
+            "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {"serve": 0, "train": 0, "qa": launches[name]},
+            "max_abs_err": max(r["max_abs_err"] for r in all_rows if r["max_abs_err"] is not None),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": max(unit_rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": total("library_ms")}
+
+
+def serve_qa(dev, card):
+    """Video QA at the full InternVideo2.5-Chat-8B geometry, bf16 then int4."""
+    from vgqa_tpu_torch.qa import LLMConfig, QAEngine, ViTConfig
+    from vgqa_tpu_torch.qa.engine import GenerationConfig
+    from vgqa_tpu_torch.qa.quant import linear_forms, quantize_llm_params_int4
+
+    llm_cfg, vit_cfg = LLMConfig.internlm2_5_7b(), ViTConfig.internvit_300m()
+    t0 = time.perf_counter()
+    eng = QAEngine.init_random(llm_cfg, vit_cfg, seed=0, device=dev, dtype=torch.bfloat16,
+                               max_seq_len=9216)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (eng.llm, eng.embed, eng.vision) for p in m.parameters())
+    print(f"QA engine built in {time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f}B params "
+          f"bf16, max_seq_len {eng.max_seq_len}")
+    frames = 32
+    npl = [1] * frames
+    tiles = np.random.RandomState(0).randint(0, 256, (frames, 448, 448, 3), np.uint8)
+    question = "What is happening in this video? Describe the main events in order."
+    ids, _ = eng.build_prompt_ids(question, npl)
+    Lp, chunked = eng._plan_prefill(len(ids))
+    chunks = Lp // eng.PREFILL_CHUNK
+    vis_chunks = -(-frames // eng.vision_chunk)
+    print(f"prompt {len(ids)} tokens -> prefill Lp {Lp}, chunked {chunked} ({chunks} chunks), "
+          f"{vis_chunks} vision chunks of {eng.vision_chunk} tiles")
+    if not (chunked and chunks == QA_CHUNKS):
+        raise AssertionError("the 32-frame prompt should prefill in 9 chunks of 1024")
+    greedy = GenerationConfig(max_new_tokens=32, do_sample=False, ignore_eos=True)
+    per_chat = {"flash_mha": 24 * vis_chunks, "flash_gqa_causal": 32 * chunks}
+    zero = {n: 0 for n in ("swin_block_canvas", "window_attention", "flash_mha_train.fwd",
+                           "flash_mha_train.bwd")}
+
+    t0 = time.perf_counter()
+    eng.chat(tiles, question, greedy, num_patches_list=npl)
+    torch.cuda.synchronize()
+    print(f"QA warm-up chat: {time.perf_counter() - t0:.2f} s")
+
+    runs, total = {}, {"flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}
+
+    def timed_chat(name, expect_int4_per_fwd, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        text, st = eng.chat(tiles, question, kw.pop("gen", greedy), num_patches_list=npl,
+                            return_stats=True, **kw)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fwd = max(st["decode_tokens"] - 1, 0)
+        want = dict(zero, **per_chat, int4_matmul=expect_int4_per_fwd * fwd)
+        print(f"QA chat [{name}]: vision {st['vision_s']:.3f} s, prefill {st['prefill_s']:.3f} s "
+              f"({st['prefill_tok_s']:.0f} tok/s, {st['prefill_tokens']} tokens), decode "
+              f"{st['decode_s']:.3f} s ({st['decode_tok_s']:.2f} tok/s, {st['decode_tokens']} "
+              f"tokens, {fwd} decode forwards), peak {peak:.2f} GiB  [{card}]")
+        print(f"  launches {launches}; answer {text[:60]!r}")
+        if not isinstance(text, str) or not all(
+                np.isfinite(v) for v in st.values() if isinstance(v, float)):
+            raise AssertionError(f"QA chat [{name}]: bad answer or stats {st}")
+        if launches != want:
+            raise AssertionError(f"QA chat [{name}]: launches {launches}, expected {want}")
+        for n in total:
+            total[n] += launches[n]
+        runs[name] = dict(st, peak_gb=peak, launches=launches, decode_forwards=fwd)
+
+    def routes_vs_plain(name):
+        on = eng.prefill_logits(tiles, question, npl).float()
+        eng.use_kernels = False
+        off = eng.prefill_logits(tiles, question, npl).float()
+        eng.use_kernels = True
+        rel = float((on - off).abs().max() / off.abs().max())
+        agree = bool(on.argmax() == off.argmax())
+        print(f"QA last-prompt-token logits, kernel vs plain routes [{name}]: rel err {rel:.3e}, "
+              f"argmax agrees {agree}")
+        # bf16 through 32 layers with random weights: the routes round at
+        # other points; a broken kernel moves the logits by far more
+        if not (np.isfinite(rel) and rel < 5e-2):
+            raise AssertionError(f"QA [{name}]: kernel and plain routes disagree ({rel})")
+        return rel
+
+    def profile_decode(name, compare=False):
+        """One decode step (B = 1, int8 KV cache of the 32-frame prompt)
+        under torch.profiler: wall, device busy, launches, top kernels. With
+        ``compare``, the step's logits with kernel routes on (K6 for the
+        int4 products) against the plain routes (the half-matmul form), from
+        the same cache; each step rewrites only its own position."""
+        vt = eng._encode_vision(tiles).reshape(-1, llm_cfg.hidden_size)
+        ids, img_pos = eng.build_prompt_ids(question, npl)
+        embeds = eng._embed_prompt(ids, img_pos, vt, Lp)
+        logits, cache = eng._prefill(embeds, len(ids), Lp, True, Lp + greedy.max_new_tokens)
+        token = logits.argmax(-1)
+        out = {}
+        with torch.no_grad():
+            step = (lambda: eng._decode_impl(cache, token, len(ids)))
+            step()
+            wall, busy, n_kernels, top = profile_step(step)
+            if compare:
+                counts = {}
+                for on in (True, False):
+                    eng.use_kernels = on
+                    before = read_launches()["int4_matmul"]
+                    out[on] = step()[0].float()
+                    counts[on] = read_launches()["int4_matmul"] - before
+                eng.use_kernels = True
+        print(f"QA decode step [{name}] under the profiler: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms (idle share {1 - busy / wall:.3f}), {n_kernels} kernel launches")
+        for kname, us in top[:8]:
+            print(f"  {us / 1e3:8.3f} ms  {kname[:110]}")
+        del cache
+        res = {"wall_ms": wall, "busy_ms": busy, "kernels": n_kernels}
+        if compare:
+            rel = float((out[True] - out[False]).abs().max() / out[False].abs().max())
+            agree = bool(out[True].argmax() == out[False].argmax())
+            print(f"QA decode-step logits, kernel vs plain routes [{name}]: rel err {rel:.3e}, "
+                  f"argmax agrees {agree}, K6 launches {counts[True]} on / {counts[False]} off")
+            if counts != {True: 7 * llm_cfg.num_layers, False: 0}:
+                raise AssertionError(f"QA decode step [{name}]: K6 launches {counts}")
+            if not (np.isfinite(rel) and rel < 5e-2):
+                raise AssertionError(f"QA decode step [{name}]: kernel and plain routes "
+                                     f"disagree ({rel})")
+            res["rel_routes"] = rel
+        return res
+
+    reset_launches()
+    timed_chat("bf16 greedy", 0)
+    prof = {"bf16": profile_decode("bf16")}
+    rel_bf16 = routes_vs_plain("bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    quantize_llm_params_int4(eng.llm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"int4 quantization on the device: {time.perf_counter() - t0:.2f} s, forms "
+          f"{linear_forms(eng.llm)}, allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    timed_chat("int4 greedy", 7 * llm_cfg.num_layers)
+    prof["int4"] = profile_decode("int4", compare=True)
+    rel_int4 = routes_vs_plain("int4")
+    sampled = GenerationConfig(max_new_tokens=32, temperature=0.2, top_p=0.9, ignore_eos=True)
+    timed_chat("int4 sampled", 7 * llm_cfg.num_layers, gen=sampled,
+               generator=torch.Generator(device=dev).manual_seed(0))
+
+    tiles2 = np.random.RandomState(1).randint(0, 256, (frames, 448, 448, 3), np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    answers, bst = eng.chat_batch([(tiles, question, npl), (tiles2, "Who is in the video?", npl)],
+                                  gen=greedy, return_stats=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict(zero, flash_mha=2 * per_chat["flash_mha"],
+                flash_gqa_causal=2 * per_chat["flash_gqa_causal"],
+                int4_matmul=7 * llm_cfg.num_layers * (greedy.max_new_tokens - 1))
+    print(f"QA chat_batch of 2 [int4 greedy]: {dt:.3f} s, {bst['agg_tok_s_e2e']:.2f} tok/s "
+          f"aggregate end to end, peak {peak:.2f} GiB  [{card}]")
+    print(f"  launches {launches}; answers {[a[:30] for a in answers]!r}")
+    if not (len(answers) == 2 and all(isinstance(a, str) for a in answers)):
+        raise AssertionError(f"chat_batch answers {answers!r}")
+    if launches != want:
+        raise AssertionError(f"chat_batch launches {launches}, expected {want}")
+    for n in total:
+        total[n] += launches[n]
+    runs["int4 batch"] = {"total_s": dt, "peak_gb": peak, "launches": launches}
+    del eng
+    return {"runs": runs, "launches": total, "rel_bf16": rel_bf16, "rel_int4": rel_int4,
+            "rel_int4_decode": prof["int4"]["rel_routes"], "decode_profile": prof,
+            "per_chat": per_chat}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -569,12 +973,20 @@ def main() -> int:
     k1_rows = check_swin_block(dev, g, K1_SERVE_CASES, batch=2, gated=False)
     k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
     k3_rows = check_flash_train(dev, g)
+    k4_rows = check_flash_mha(dev, g)
+    k5_rows = check_flash_gqa(dev, g)
+    k6_rows = check_int4(dev, g)
+    k6_token_ms = int4_token_device_ms(dev, g)
     torch.cuda.empty_cache()
 
     serve_launches = serve(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     tr = train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qa = serve_qa(dev, card)
+    qa_l = qa["launches"]
 
     k1_fwd = sum(r["ms"] * r["per_fwd"] for r in k1_rows)
     k1_plain = sum(r["plain_ms"] * r["per_fwd"] for r in k1_rows)
@@ -589,7 +1001,7 @@ def main() -> int:
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
          "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"],
          "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
-                              "train": tr["launches"]["swin_block_canvas"]},
+                              "train": tr["launches"]["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None,
@@ -600,6 +1012,8 @@ def main() -> int:
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
          "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"],
+         "launches_by_path": {"serve": serve_launches["window_attention"],
+                              "train": tr["launches"]["window_attention"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"]},
@@ -607,6 +1021,9 @@ def main() -> int:
          "source": "vgqa_tpu_torch/csrc/flash_train.cu",
          "replaces": "vgqa_tpu/ops/pallas/flash_train.py:223",
          "launches": tr["launches"]["flash_mha_train.fwd"] + tr["launches"]["flash_mha_train.bwd"],
+         "launches_by_path": {"serve": 0, "qa": 0,
+                              "train": tr["launches"]["flash_mha_train.fwd"]
+                              + tr["launches"]["flash_mha_train.bwd"]},
          "launches_by_direction": {"fwd": tr["launches"]["flash_mha_train.fwd"],
                                    "bwd": tr["launches"]["flash_mha_train.bwd"]},
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
@@ -614,13 +1031,27 @@ def main() -> int:
          "bound_ms": 6 * (k3["fwd_bound_ms"] + k3["bwd_bound_ms"]), "bound_by": k3["bound_by"],
          "library_ms": 6 * k3_lib,
          "fwd_ms": k3["fwd_ms"], "bwd_ms": k3["bwd_ms"]},
+        qa_row("flash_mha", "vgqa_tpu/ops/pallas/flash_attention.py:79", qa_l,
+               k4_rows[:1], qa["per_chat"]["flash_mha"], k4_rows),
+        qa_row("flash_gqa_causal", "vgqa_tpu/ops/pallas/flash_attention.py:242", qa_l,
+               k5_rows, 32, k5_rows),
+        dict(qa_row("int4_matmul", "vgqa_tpu/ops/pallas/int4_matmul.py:145", qa_l,
+                    [next(r for r in k6_rows if (r["K"], r["N"], r["M"]) == (k, n, 1))
+                     for k, n, _ in QA_PROJ], 32, k6_rows),
+             device_ms_per_token=k6_token_ms),
     ]}
     print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
           "at 224 px for K1 (its 12 calls) and K2 (6 calls at S=124), over one train step "
           "at 64f@224 for K3 (6 forward + 6 backward calls at [512, 124, 32], rate 0.1; "
           "library: SDPA fwd+bwd at rate 0); launches over the serving (4 forwards) and "
           f"training (3 steps) runs; train step {tr['ms_step']:.1f} ms, "
-          f"peak {tr['peak_gb']:.2f} GiB  [{card}]")
+          f"peak {tr['peak_gb']:.2f} GiB; K4 over one 32-frame chat (96 calls at "
+          "[128, 1025, 64], unmasked), K5 over one 32-frame prefill (32 layers x the 9 "
+          "chunk offsets), K6 over one int4 decode token at M = 1 (32 layers x 7 "
+          "projections; library: see the K6 lines); QA launches over the bf16, int4, "
+          f"sampled and batched chats; QA last-prompt-token logits kernel vs plain routes "
+          f"rel err bf16 {qa['rel_bf16']:.3e}, int4 {qa['rel_int4']:.3e} (K4, K5); int4 "
+          f"decode-step logits {qa['rel_int4_decode']:.3e} (K6)  [{card}]")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ import pytest
 import torch
 
 from vgqa_tpu_torch.models import video_swin as tvs
+from vgqa_tpu_torch.ops.kernels.flash_attention import (
+    flash_gqa_causal,
+    flash_gqa_causal_reference,
+    flash_mha,
+    flash_mha_reference,
+)
 from vgqa_tpu_torch.ops.kernels.flash_train import (
     flash_mha_train,
     flash_train_bwd,
@@ -22,6 +28,11 @@ from vgqa_tpu_torch.ops.kernels.flash_train import (
     flash_train_fwd,
     flash_train_fwd_reference,
     fold_heads,
+)
+from vgqa_tpu_torch.ops.kernels.int4_matmul import (
+    int4_matmul,
+    int4_matmul_kernel_applicable,
+    int4_matmul_reference,
 )
 from vgqa_tpu_torch.ops.kernels.swin_block import (
     swin_block_canvas,
@@ -136,3 +147,68 @@ def test_flash_train_kernel_cuda(cuda, Lq, Lk, rate):
     for got, want in zip(grads, ref_grads):
         assert _rel_err(fold_heads(got, H), want) < CUDA_REL
     assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_mha_kernel_cuda(cuda, masked):
+    """K4 at the InternViT shape (2 tiles x 16 heads, L = 1025, dh = 64) on
+    q/k/v sliced from one fused qkv tensor, as the ViT passes them; with a
+    key mask that leaves one row of keys fully masked."""
+    g = torch.Generator(device=cuda).manual_seed(int(masked))
+    T, L, H = 2, 1025, 16
+    qkv = torch.randn(T, L, 3 * H * 64, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split(H * 64, dim=-1)
+    mask = None
+    if masked:
+        mask = torch.rand(T, L, generator=g, device=cuda) > 0.3
+        mask[1] = False
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, H, key_mask=mask)
+    ref = flash_mha_reference(q.float(), k.float(), v.float(), H, key_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    assert _rel_err(out, ref) < CUDA_REL
+    if masked:     # a fully masked row averages V over its keys
+        mean = v[1].float().mean(0)
+        assert (out[1].float() - mean).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset,length", [(0, 8700), (8192, 8700), (0, 600)])
+def test_flash_gqa_causal_kernel_cuda(cuda, q_offset, length):
+    """K5 at the prefill shape (H 32, Hkv 8, dh 128, Lq 1024, S 9216) with
+    q as the [L, H, dh] -> [H, L, dh] view the LLM passes."""
+    g = torch.Generator(device=cuda).manual_seed(q_offset + length)
+    H, Hkv, Lq, S, dh = 32, 8, 1024, 9216, 128
+    q = torch.randn(Lq, H, dh, generator=g, device=cuda).bfloat16().transpose(0, 1)
+    k, v = (torch.randn(Hkv, S, dh, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n = torch.tensor(length, device=cuda)
+    before = flash_gqa_causal.launches
+    out = flash_gqa_causal(q, k, v, q_offset, n)
+    ref = flash_gqa_causal_reference(q.float(), k.float(), v.float(), q_offset, n)
+    torch.cuda.synchronize()
+    assert flash_gqa_causal.launches == before + 1
+    assert _rel_err(out, ref) < CUDA_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 5, 64])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (1024, 90)])
+def test_int4_matmul_kernel_cuda(cuda, M, K, N):
+    """K6 at the production shapes and M up to the gate's 64, against the
+    plain per-group version on the same bf16 activations."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    n_g = K // 128
+    assert int4_matmul_kernel_applicable(M, K, N, n_g)
+    packed = torch.randint(-128, 128, (K // 2, N), generator=g, device=cuda,
+                           dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(n_g, N, generator=g, device=cuda) * 0.01
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    before = int4_matmul.launches
+    out = int4_matmul(x, packed, scale)
+    ref = int4_matmul_reference(x, packed, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert _rel_err(out, ref.float()) < CUDA_REL

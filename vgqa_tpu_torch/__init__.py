@@ -1,9 +1,10 @@
-"""vgqa_tpu_torch — the grounding model of ``vgqa_tpu`` in PyTorch and CUDA.
+"""vgqa_tpu_torch — ``vgqa_tpu`` in PyTorch and CUDA: grounding serving and
+training, and video QA serving.
 
 A second package beside ``vgqa_tpu`` (the JAX reference, which stays as it
 is). It mirrors that package's layout module for module: ``config``,
 ``utils``, ``ops`` (``ops/kernels`` is the counterpart of ``ops/pallas``),
-``models``, ``training`` and ``inference``; ``csrc`` holds the CUDA sources
+``models``, ``training``, ``qa`` and ``inference``; ``csrc`` holds the CUDA sources
 of the hand-written kernels. Public tensors keep the JAX layouts (frames
 ``[V, T, H, W, 3]``, masks True = valid, attention heads packed in the
 channel dimension), and module names equal the flax names, so a JAX

@@ -11,9 +11,15 @@ becomes a ``state_dict`` by one generic walk with a rule per kind of leaf:
 * ``bias`` and the raw parameters below keep their name and layout:
   ``patch_embed_kernel``, ``patch_embed_bias``,
   ``relative_position_bias_table``, ``row_embed``, ``col_embed``,
-  ``time_embed``.
+  ``time_embed``, and the QA vision tower's ``ls1``, ``ls2``,
+  ``cls_token``, ``pos_embed``.
+* Inside a quantized Dense (a dict holding ``kernel_q`` or ``kernel_q4``,
+  ``qa/quant.py``) every leaf keeps its name, layout and dtype:
+  ``kernel_q`` int8 [in, out], ``kernel_q4`` int8 [in/2, out] (the
+  split-half pack), and ``scale`` / ``scale4``, which there are
+  quantization scales (f32), not norm weights.
 
-Any other leaf raises. A reference checkpoint loads along
+Float leaves become float32; any other leaf raises. A reference checkpoint loads along
 ``vgqa_tpu.models.convert_grounding.convert_grounding_reference`` (numpy,
 in the JAX package) followed by ``state_dict_from_jax``.
 """
@@ -28,7 +34,19 @@ from torch import nn
 
 _AS_STORED = {"bias", "patch_embed_kernel", "patch_embed_bias",
               "relative_position_bias_table", "row_embed", "col_embed",
-              "time_embed"}
+              "time_embed", "ls1", "ls2", "cls_token", "pos_embed"}
+_QUANT_LEAVES = {"kernel_q": np.int8, "kernel_q4": np.int8, "scale": np.float32,
+                 "scale4": np.float32}
+
+
+def _convert_quant_leaf(path, value):
+    name = path[-1]
+    if name not in _QUANT_LEAVES:
+        raise KeyError(f"{'/'.join(path)}: no rule maps this leaf of a quantized Dense")
+    arr = np.asarray(value)
+    if arr.dtype != _QUANT_LEAVES[name]:
+        raise TypeError(f"{'/'.join(path)}: {arr.dtype}, expected {_QUANT_LEAVES[name]}")
+    return name, arr
 
 
 def _convert_leaf(path, value):
@@ -49,7 +67,8 @@ def _convert_leaf(path, value):
 
 def state_dict_from_jax(params: Mapping,
                         module: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree -> ``state_dict`` (float32 tensors).
+    """JAX parameter tree -> ``state_dict`` (float32 tensors; int8 and f32 as
+    stored inside quantized Dense dicts).
 
     With ``module`` given, the result must name exactly the module's
     parameters with the same shapes; a missing, extra or misshapen entry
@@ -58,12 +77,13 @@ def state_dict_from_jax(params: Mapping,
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node, path):
+    def walk(node, path, quant=False):
         if isinstance(node, Mapping):
+            quant = "kernel_q" in node or "kernel_q4" in node
             for k, v in node.items():
-                walk(v, path + (str(k),))
+                walk(v, path + (str(k),), quant)
             return
-        name, arr = _convert_leaf(path, node)
+        name, arr = (_convert_quant_leaf if quant else _convert_leaf)(path, node)
         out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, ())

@@ -41,6 +41,12 @@ _SIGNATURES = {
     "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
     "vgqa_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
+    "vgqa_flash_mha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vgqa_flash_gqa_causal": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    "vgqa_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vgqa_int4_matmul_tiles": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
