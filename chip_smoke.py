@@ -13,10 +13,12 @@
    that call (``library_ms``; the port never calls it):
    K2 window_attention at the encoder's serving rows; K1 swin_block_canvas
    at the 12 serving block shapes (V = 2) and, with DropPath gates that
-   include zeros, at the 8 training stage shapes (B = 1); K3
-   flash_mha_train forward (out, lse) and backward (dq, dk, dv) at
-   [512, 124, 32] and [512, 418, 32], dropout rates 0 and 0.1 (both sides
-   draw the same keep mask).
+   include zeros, at the 8 training stage shapes (B = 1); K1'
+   swin_block_fused on the windows of the rolled canvas at the 9 serving
+   shapes, also held against K1 on the same canvas (the same chain with
+   identity row maps); K3 flash_mha_train forward (out, lse) and backward
+   (dq, dk, dv) at [512, 124, 32] and [512, 418, 32], dropout rates 0 and
+   0.1 (both sides draw the same keep mask).
 4. Serves the full-width default grounding model (ResNet-101, Video Swin-T,
    RoBERTa-base, 6-layer encoder, 6+6 decoders) with random weights from
    seed 0 in bf16: one warm-up request, then three pipelined 128-frame
@@ -24,6 +26,10 @@
    decoded-frames path, checking each response and that the K1/K2 launch
    counters rose by 12/6 per forward; then one forward with the kernel
    routes on against the same model with the plain routes.
+4b. Runs the Swin-T tower alone (64 frames x 224 px, V = 2, bf16, random
+   weights from seed 0) through its three block routes: canvas (K1 x 12),
+   blocks (K1' x 12) and module (plain PyTorch): launch counts, tower ms,
+   stage-3 error of blocks and module against canvas, peak memory.
 5. Frees the serving models and trains the full-width default model with
    TPU.TRAIN_DTYPE bfloat16 at 64 frames x 224 px, V = 1, random weights
    from seed 0, on the synthetic batch: one warm-up step, three timed steps
@@ -33,7 +39,10 @@
    forward+backward and the optimizer+EMA halves timed alone; one step
    under torch.profiler (device busy share); then the loss and the global
    gradient norm of one step with the kernel routes on against the plain
-   routes, from the same state with every dropout rate 0.
+   routes, from the same state with every dropout rate 0. Then two bf16
+   steps with a trainable tower (MODEL.VIDEO_SWIN.FREEZE False, the module
+   route under autograd): ms/step, peak memory, finite loss, the Swin
+   parameters changed, and K1 / K1' launched 0 times.
 6. Checks the QA kernels against their plain versions at the shapes of the
    QA path: K4 flash_mha at [128, 1025, 64] (8 tiles x 16 heads, one ViT
    call), unmasked and with a key mask; K5 flash_gqa_causal at H 32 / Hkv 8
@@ -153,31 +162,49 @@ K1_SERVE_CASES = [
 K1_TRAIN_CASES = K1_SERVE_CASES[:8]
 
 
-def check_swin_block(dev, g, cases, batch, gated):
+def _swin_case(dev, g, dims, C, heads, shift, batch):
+    """Random bf16 inputs of one K1 / K1' block shape: (window, shift,
+    padded dims, N, weights, canvas, bias, region, valid)."""
     from vgqa_tpu_torch.models.video_swin import (
         _adjust_window, _region_partition, _valid_partition)
+
+    window, shift = _adjust_window(dims, (8, 7, 7), shift)
+    padded = tuple(d + (-d) % w for d, w in zip(dims, window))
+    N = window[0] * window[1] * window[2]
+
+    def rnd(*s, sc=1.0):
+        return (sc * torch.randn(*s, generator=g, device=dev)).bfloat16()
+
+    ws = [1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 3 * C, sc=C ** -0.5),
+          rnd(3 * C, sc=0.1), rnd(C, C, sc=C ** -0.5), rnd(C, sc=0.1),
+          1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 4 * C, sc=C ** -0.5),
+          rnd(4 * C, sc=0.1), rnd(4 * C, C, sc=(4 * C) ** -0.5), rnd(C, sc=0.1)]
+    canvas = rnd(batch, *padded, C)
+    bias = rnd(heads, N, N, sc=0.5)
+    region = (torch.from_numpy(_region_partition(padded, window, shift)).to(dev)
+              if any(shift) else None)
+    valid = _valid_partition(dims, padded, window, shift)
+    valid = None if valid is None else torch.from_numpy(valid).to(dev)
+    return window, shift, padded, N, ws, canvas, bias, region, valid
+
+
+def k1_bound(batch, padded, C, N, heads):
+    """(bound ms, bound_by) of one K1 / K1' call: the four linear layers and
+    the attention products; bytes: tokens in and out, weights, bias."""
+    tokens = batch * padded[0] * padded[1] * padded[2]
+    flops = tokens * (24.0 * C * C + 4.0 * N * C)
+    nbytes = 2 * tokens * C * 2 + 12 * C * C * 2 + heads * N * N * 2
+    return bound(flops, nbytes)
+
+
+def check_swin_block(dev, g, cases, batch, gated):
     from vgqa_tpu_torch.ops.kernels.swin_block import (
         swin_block_canvas, swin_block_canvas_reference)
 
     rows = []
     for i, (dims, C, heads, shift, per_fwd) in enumerate(cases):
-        window, shift = _adjust_window(dims, (8, 7, 7), shift)
-        padded = tuple(d + (-d) % w for d, w in zip(dims, window))
-        N = window[0] * window[1] * window[2]
-
-        def rnd(*s, sc=1.0):
-            return (sc * torch.randn(*s, generator=g, device=dev)).bfloat16()
-
-        ws = [1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 3 * C, sc=C ** -0.5),
-              rnd(3 * C, sc=0.1), rnd(C, C, sc=C ** -0.5), rnd(C, sc=0.1),
-              1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 4 * C, sc=C ** -0.5),
-              rnd(4 * C, sc=0.1), rnd(4 * C, C, sc=(4 * C) ** -0.5), rnd(C, sc=0.1)]
-        canvas = rnd(batch, *padded, C)
-        bias = rnd(heads, N, N, sc=0.5)
-        region = (torch.from_numpy(_region_partition(padded, window, shift)).to(dev)
-                  if any(shift) else None)
-        valid = _valid_partition(dims, padded, window, shift)
-        valid = None if valid is None else torch.from_numpy(valid).to(dev)
+        window, shift, padded, N, ws, canvas, bias, region, valid = _swin_case(
+            dev, g, dims, C, heads, shift, batch)
         # DropPath gates 0 or 1/keep per branch, a dropped branch in every case
         gates = (torch.tensor([[0.0, 1.25]] if i % 2 else [[1.1111, 0.0]], device=dev)
                  .repeat(batch, 1) if gated else None)
@@ -191,10 +218,7 @@ def check_swin_block(dev, g, cases, batch, gated):
         del out, ref
         ms = cuda_ms(lambda: swin_block_canvas(*args, **kw))
         plain = cuda_ms(lambda: swin_block_canvas_reference(*f32, **kw))
-        tokens = batch * padded[0] * padded[1] * padded[2]
-        flops = tokens * (24.0 * C * C + 4.0 * N * C)
-        nbytes = 2 * tokens * C * 2 + 12 * C * C * 2 + heads * N * N * 2
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = k1_bound(batch, padded, C, N, heads)
         rows.append({"dims": dims, "C": C, "shift": shift, "per_fwd": per_fwd,
                      "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by})
@@ -204,6 +228,48 @@ def check_swin_block(dev, g, cases, batch, gated):
               f"bound {b_ms:.3f} ms ({b_by})")
         if not rel < REL_TOL:
             raise AssertionError(f"swin_block_canvas {dims} C={C}: rel_err {rel} >= {REL_TOL}")
+    return rows
+
+
+def check_swin_fused(dev, g, cases, batch):
+    """K1' on the windows of the rolled canvas at the K1 shapes: against its
+    plain version, and window_reverse(K1'(partition(roll(canvas)))) against
+    K1 on the canvas (the same chain with identity row maps: expected 0)."""
+    from vgqa_tpu_torch.models.video_swin import window_partition, window_reverse
+    from vgqa_tpu_torch.ops.kernels.swin_block import (
+        swin_block_canvas, swin_block_fused, swin_block_fused_reference)
+
+    rows = []
+    for dims, C, heads, shift, per_fwd in cases:
+        window, shift, padded, N, ws, canvas, bias, region, valid = _swin_case(
+            dev, g, dims, C, heads, shift, batch)
+        rolled = torch.roll(canvas, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+        windows = window_partition(rolled, window).contiguous()
+        del rolled
+        kw = {"region": region, "valid": valid}
+        f32 = (windows.float(), *[w.float() for w in ws], bias.float(), heads)
+        out = swin_block_fused(windows, *ws, bias, heads, **kw)
+        ref = swin_block_fused_reference(*f32, **kw)
+        k1 = swin_block_canvas(canvas, *ws, bias, heads, window, shift, **kw)
+        torch.cuda.synchronize()
+        rel, mae = rel_err(out, ref)
+        k1_rel, k1_mae = rel_err(window_reverse(out, window, batch, *padded), k1)
+        del out, ref, k1
+        ms = cuda_ms(lambda: swin_block_fused(windows, *ws, bias, heads, **kw))
+        plain = cuda_ms(lambda: swin_block_fused_reference(*f32, **kw))
+        b_ms, b_by = k1_bound(batch, padded, C, N, heads)
+        rows.append({"dims": dims, "C": C, "shift": shift, "per_fwd": per_fwd,
+                     "rel_err": rel, "max_abs_err": mae, "vs_k1_max_abs": k1_mae,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"K1' swin_block_fused W={windows.shape[0]} N={N} C={C} h={heads} "
+              f"({dims}->{padded}, roll {shift}, valid={valid is not None}): rel_err {rel:.3e} "
+              f"max_abs_err {mae:.3e}  vs K1 on the canvas: max abs diff {k1_mae:.3e}  "
+              f"kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+        if not (rel < REL_TOL and k1_rel < REL_TOL):
+            raise AssertionError(f"swin_block_fused {dims} C={C}: rel_err {rel}, vs K1 "
+                                 f"{k1_rel} (limit {REL_TOL})")
+        del windows, f32
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -517,10 +583,11 @@ def _counted():
     from vgqa_tpu_torch.ops.kernels.flash_attention import flash_gqa_causal, flash_mha
     from vgqa_tpu_torch.ops.kernels.flash_train import flash_mha_train
     from vgqa_tpu_torch.ops.kernels.int4_matmul import int4_matmul
-    from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas
+    from vgqa_tpu_torch.ops.kernels.swin_block import swin_block_canvas, swin_block_fused
     from vgqa_tpu_torch.ops.kernels.window_attention import window_attention
 
     return {"swin_block_canvas": (swin_block_canvas, "launches"),
+            "swin_block_fused": (swin_block_fused, "launches"),
             "window_attention": (window_attention, "launches"),
             "flash_mha_train.fwd": (flash_mha_train, "fwd_launches"),
             "flash_mha_train.bwd": (flash_mha_train, "bwd_launches"),
@@ -578,8 +645,8 @@ def serve(dev, card):
     print(f"served 1 request x 128 frames @420 px (first call at this size): "
           f"{t420:.3f} s/request, {2 / t420:.2f} clips/s  [{card}]")
     print(f"launches over {forwards} forwards: {launches}")
-    if launches != {"swin_block_canvas": 12 * forwards, "window_attention": 6 * forwards,
-                    "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0,
+    if launches != {"swin_block_canvas": 12 * forwards, "swin_block_fused": 0,
+                    "window_attention": 6 * forwards, "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0,
                     "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}:
         raise AssertionError(f"expected 12 and 6 launches per forward, got {launches}")
     print("response 0:", json.dumps({"temporal": outs[0]["temporal"],
@@ -697,7 +764,7 @@ def train(dev, card):
     print(f"launches over 3 steps: {launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss {losses}")
-    if launches != {"swin_block_canvas": 36, "window_attention": 0,
+    if launches != {"swin_block_canvas": 36, "swin_block_fused": 0, "window_attention": 0,
                     "flash_mha_train.fwd": 18, "flash_mha_train.bwd": 18,
                     "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}:
         raise AssertionError(f"expected 12 / 6 / 6 launches per step, got {launches}")
@@ -758,6 +825,96 @@ def train(dev, card):
     return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches}
 
 
+def swin_tower_routes(dev, card):
+    """The Swin-T tower alone at full width, 64 frames x 224 px, V = 2, bf16,
+    random weights from seed 0, through its three block routes: canvas (K1
+    x 12), blocks (K1' x 12) and module (plain PyTorch); each route's launch
+    counts are set to 0 just before its run and read just after."""
+    from vgqa_tpu_torch.models.video_swin import VIDEO_SWIN_CONFIGS, VideoSwinBackbone
+
+    torch.manual_seed(0)
+    tower = VideoSwinBackbone(VIDEO_SWIN_CONFIGS["video_swin_t_p4w7"]).to(dev).bfloat16().eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn(2, 64, 224, 224, 3, generator=g, device=dev).bfloat16()
+    want = {"canvas": {"swin_block_canvas": 12}, "blocks": {"swin_block_fused": 12},
+            "module": {}}
+    outs, res = {}, {}
+    with torch.no_grad():
+        for route in ("canvas", "blocks", "module"):
+            tower(frames, route=route)                       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            outs[route] = tower(frames, route=route)["3"].float()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            expect = {n: want[route].get(n, 0) for n in launches}
+            if launches != expect:
+                raise AssertionError(f"tower route {route}: launches {launches}, expected {expect}")
+            ms, _ = timed(lambda: tower(frames, route=route), reps=3)
+            res[route] = {"ms": ms, "peak_gb": peak, "launches": launches}
+    for route in ("blocks", "module"):
+        rel, mae = rel_err(outs[route], outs["canvas"])
+        res[route].update(rel_vs_canvas=rel, max_abs_vs_canvas=mae)
+    print("Swin-T tower 64f@224 V=2 bf16: " + ", ".join(
+        f"{r} {v['ms']:.2f} ms (peak {v['peak_gb']:.2f} GiB)" for r, v in res.items())
+        + f"; stage-3 rel err vs canvas: blocks {res['blocks']['rel_vs_canvas']:.3e}, module "
+        f"{res['module']['rel_vs_canvas']:.3e}  [{card}]")
+    for route in ("blocks", "module"):
+        if not res[route]["rel_vs_canvas"] < 5e-2:
+            raise AssertionError(f"tower route {route} disagrees with the canvas route")
+    del tower, frames, outs
+    return res
+
+
+def train_trainable(dev, card):
+    """Two bf16 train steps at 64f@224, V = 1, with a trainable Swin tower
+    (MODEL.VIDEO_SWIN.FREEZE False: the module route under autograd, DropPath
+    from the step's generator; K1 and K1' do not launch)."""
+    from vgqa_tpu_torch.data.synthetic_batch import synthetic_batch
+    from vgqa_tpu_torch.training.trainer import Trainer, batch_to
+
+    cfg = full_cfg(224, **{"TPU.TRAIN_DTYPE": "bfloat16", "MODEL.VIDEO_SWIN.FREEZE": False})
+    trainer = Trainer(cfg, device=dev, seed=0)
+    trainer.setup(max_iter=1000)
+    state, step_fn = trainer.state, trainer.step_fn
+    model, labels = state.model, state.optimizer.labels
+    b = batch_to(synthetic_batch(cfg, seed=0), dev)
+    args = (b["video"], b["text"], b["targets"])
+    swin = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("vid.")}
+    if any(labels[n] == "frozen" for n in swin):
+        raise AssertionError("MODEL.VIDEO_SWIN.FREEZE False left Swin leaves frozen")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(float(step_fn(state, *args, seed=0)["loss"]))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = sum(1 for n, p in model.named_parameters()
+                  if n in swin and not torch.equal(p, swin[n]))
+    print(f"train step 64f@224 bf16 V=1, trainable Swin (module route): steps "
+          f"{[round(t, 1) for t in step_ms]} ms, peak memory {peak:.2f} GiB  [{card}]")
+    print(f"  losses {losses}; Swin parameters changed: {changed} of {len(swin)}; "
+          f"launches over 2 steps: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss {losses}")
+    if changed < 0.9 * len(swin):
+        raise AssertionError(f"only {changed} of {len(swin)} Swin parameters changed")
+    if ((launches["swin_block_canvas"], launches["swin_block_fused"]) != (0, 0)
+            or (launches["flash_mha_train.fwd"], launches["flash_mha_train.bwd"]) != (12, 12)):
+        raise AssertionError(f"trainable tower: launches {launches}")
+    del trainer, state, model, swin
+    return {"step_ms": step_ms, "peak_gb": peak, "losses": losses, "launches": launches}
+
+
 def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
     """One kernel-table entry of a QA kernel: ms / plain / bound / library
     summed over ``unit_rows`` (the calls of one unit of work) x ``repeat``."""
@@ -803,8 +960,8 @@ def serve_qa(dev, card):
         raise AssertionError("the 32-frame prompt should prefill in 9 chunks of 1024")
     greedy = GenerationConfig(max_new_tokens=32, do_sample=False, ignore_eos=True)
     per_chat = {"flash_mha": 24 * vis_chunks, "flash_gqa_causal": 32 * chunks}
-    zero = {n: 0 for n in ("swin_block_canvas", "window_attention", "flash_mha_train.fwd",
-                           "flash_mha_train.bwd")}
+    zero = {n: 0 for n in ("swin_block_canvas", "swin_block_fused", "window_attention",
+                           "flash_mha_train.fwd", "flash_mha_train.bwd")}
 
     t0 = time.perf_counter()
     eng.chat(tiles, question, greedy, num_patches_list=npl)
@@ -972,6 +1129,7 @@ def main() -> int:
     k2_rows = check_window_attention(dev, g)
     k1_rows = check_swin_block(dev, g, K1_SERVE_CASES, batch=2, gated=False)
     k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
+    k1f_rows = check_swin_fused(dev, g, K1_SERVE_CASES, batch=2)
     k3_rows = check_flash_train(dev, g)
     k4_rows = check_flash_mha(dev, g)
     k5_rows = check_flash_gqa(dev, g)
@@ -982,7 +1140,13 @@ def main() -> int:
     serve_launches = serve(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    tower = swin_tower_routes(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     tr = train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_swin = train_trainable(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     qa = serve_qa(dev, card)
@@ -1008,6 +1172,19 @@ def main() -> int:
          "train_step_ms": sum(r["ms"] * r["per_fwd"] for r in k1_train_rows),
          "train_step_plain_ms": sum(r["plain_ms"] * r["per_fwd"] for r in k1_train_rows),
          "train_step_bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1_train_rows)},
+        {"name": "swin_block_fused", "route": "cuda",
+         "source": "vgqa_tpu_torch/csrc/kernels.cu",
+         "replaces": "vgqa_tpu/ops/pallas/swin_block.py:212",
+         "launches": tower["blocks"]["launches"]["swin_block_fused"],
+         "launches_by_path": {"serve": 0, "train": 0, "qa": 0,
+                              "swin_blocks": tower["blocks"]["launches"]["swin_block_fused"]},
+         "max_abs_err": max(r["max_abs_err"] for r in k1f_rows),
+         "ms": sum(r["ms"] * r["per_fwd"] for r in k1f_rows),
+         "plain_ms": sum(r["plain_ms"] * r["per_fwd"] for r in k1f_rows),
+         "bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1f_rows),
+         "bound_by": max(k1f_rows, key=lambda r: r["bound_ms"] * r["per_fwd"])["bound_by"],
+         "library_ms": None,
+         "vs_k1_max_abs": max(r["vs_k1_max_abs"] for r in k1f_rows)},
         {"name": "window_attention", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
@@ -1041,11 +1218,16 @@ def main() -> int:
              device_ms_per_token=k6_token_ms),
     ]}
     print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
-          "at 224 px for K1 (its 12 calls) and K2 (6 calls at S=124), over one train step "
+          "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124), over one "
+          "train step "
           "at 64f@224 for K3 (6 forward + 6 backward calls at [512, 124, 32], rate 0.1; "
           "library: SDPA fwd+bwd at rate 0); launches over the serving (4 forwards) and "
           f"training (3 steps) runs; train step {tr['ms_step']:.1f} ms, "
-          f"peak {tr['peak_gb']:.2f} GiB; K4 over one 32-frame chat (96 calls at "
+          f"peak {tr['peak_gb']:.2f} GiB; K1' launches over the tower's blocks route; Swin-T "
+          f"tower ms canvas / blocks / module {tower['canvas']['ms']:.2f} / "
+          f"{tower['blocks']['ms']:.2f} / {tower['module']['ms']:.2f}; trainable-tower train "
+          f"step {tr_swin['step_ms'][-1]:.1f} ms, peak {tr_swin['peak_gb']:.2f} GiB; "
+          f"K4 over one 32-frame chat (96 calls at "
           "[128, 1025, 64], unmasked), K5 over one 32-frame prefill (32 layers x the 9 "
           "chunk offsets), K6 over one int4 decode token at M = 1 (32 layers x 7 "
           "projections; library: see the K6 lines); QA launches over the bf16, int4, "

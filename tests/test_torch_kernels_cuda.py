@@ -37,6 +37,8 @@ from vgqa_tpu_torch.ops.kernels.int4_matmul import (
 from vgqa_tpu_torch.ops.kernels.swin_block import (
     swin_block_canvas,
     swin_block_canvas_reference,
+    swin_block_fused,
+    swin_block_fused_reference,
 )
 from vgqa_tpu_torch.ops.kernels.window_attention import (
     window_attention,
@@ -116,6 +118,42 @@ def test_swin_block_canvas_kernel_cuda(cuda, shape, heads, shift, padded):
                                       region=region, valid=valid, gates=gates)
     torch.cuda.synchronize()
     assert _rel_err(out, ref) < CUDA_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads,shift,padded", [
+    ((16, 14, 14, 96), 3, (4, 3, 3), False),
+    ((16, 7, 7, 768), 24, (4, 0, 0), False),
+    ((16, 53, 53, 192), 6, (4, 3, 3), True),
+])
+def test_swin_block_fused_kernel_cuda(cuda, shape, heads, shift, padded):
+    """K1' on the windows of the rolled canvas against its plain version,
+    and against K1 on the canvas (the same chain with identity row maps)."""
+    D, H, W, C = shape
+    window, shift = tvs._adjust_window((D, H, W), (8, 7, 7), shift)
+    dims_p = tuple(d + (-d) % w for d, w in zip((D, H, W), window))
+    N = window[0] * window[1] * window[2]
+    rng = np.random.RandomState(C + 1)
+    ws = [torch.from_numpy(w).to(cuda).bfloat16() for w in _block_weights(rng, C)]
+    g = torch.Generator(device=cuda).manual_seed(C + 1)
+    canvas = torch.randn(2, *dims_p, C, generator=g, device=cuda).bfloat16()
+    bias = (0.2 * torch.randn(heads, N, N, generator=g, device=cuda)).bfloat16()
+    region = (torch.from_numpy(tvs._region_partition(dims_p, window, shift)).to(cuda)
+              if any(shift) else None)
+    valid = tvs._valid_partition((D, H, W), dims_p, window, shift)
+    assert (valid is not None) == padded
+    valid = None if valid is None else torch.from_numpy(valid).to(cuda)
+    rolled = torch.roll(canvas, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+    windows = tvs.window_partition(rolled, window)
+    before = swin_block_fused.launches
+    out = swin_block_fused(windows, *ws, bias, heads, region=region, valid=valid)
+    ref = swin_block_fused_reference(windows.float(), *[w.float() for w in ws], bias.float(),
+                                     heads, region=region, valid=valid)
+    k1 = swin_block_canvas(canvas, *ws, bias, heads, window, shift, region=region, valid=valid)
+    torch.cuda.synchronize()
+    assert swin_block_fused.launches == before + 1
+    assert _rel_err(out, ref) < CUDA_REL
+    assert _rel_err(tvs.window_reverse(out, window, 2, *dims_p), k1) < CUDA_REL
 
 
 @pytest.mark.cuda

@@ -22,7 +22,9 @@
 // swin_block_canvas (the port of vgqa_tpu/ops/pallas/swin_block.py:
 // swin_block_canvas) chains ln_rows -> gemm(qkv) -> window_attn ->
 // gemm(proj + residual) -> ln_rows -> gemm(fc1 + GELU) -> gemm(fc2 +
-// residual + scatter); see vgqa_tpu_torch/ops/kernels/swin_block.py.
+// residual + scatter); swin_block_fused (the port of swin_block_fused in the
+// same file) runs the same chain on partitioned windows with null (identity)
+// row maps; see vgqa_tpu_torch/ops/kernels/swin_block.py.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -446,8 +448,10 @@ gemm_bf16_kernel(GemmParams p) {
     } else {
       const float g = p.gates ? rbf(p.gates[(m / p.rows_per_sample) * 2 + p.gate_col]) : 1.f;
       long long src = m * p.ldr + n;
-      if (p.mode == EPI_RES_GATHER) src = (long long)p.rowmap[m] * p.ldr + n;
-      else dst = (long long)p.rowmap[m] * p.ldo + n;
+      if (p.rowmap) {         // a null map is the identity (swin_block_fused)
+        if (p.mode == EPI_RES_GATHER) src = (long long)p.rowmap[m] * p.ldr + n;
+        else dst = (long long)p.rowmap[m] * p.ldo + n;
+      }
       const uint4 xv = *reinterpret_cast<const uint4*>(p.res + src);
       const bf16* x = reinterpret_cast<const bf16*>(&xv);
 #pragma unroll

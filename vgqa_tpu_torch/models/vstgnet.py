@@ -4,16 +4,20 @@
 Frame selection stays a boolean ``select_mask`` (frames above theta, else
 every valid frame) with masked means, and inference runs the static second
 pass (re-selection from the actioness head and a second decode), as in the
-JAX model. The Swin tower runs ``swin_block_canvas`` per block and the
-encoder's per-frame self-attention runs ``window_attention`` (eval) or
-``flash_mha_train`` (training) when ``use_pallas_attention`` is set: CUDA
-tensors launch the hand-written kernels, CPU tensors run their plain
-versions.
+JAX model. When ``use_pallas_attention`` is set, the encoder's per-frame
+self-attention runs ``window_attention`` (eval) or ``flash_mha_train``
+(training), and the Swin tower runs ``swin_block_canvas`` per block
+(the canvas route) in eval and for a frozen tower in training: CUDA tensors
+launch the hand-written kernels, CPU tensors run their plain versions. A
+trainable tower in training, and any tower with the kernel routes off,
+takes the module route (``SwinBlock3D.forward``), as the JAX model takes its
+flax modules there.
 
 Training (``train=True`` with a ``DropoutRng``) follows the JAX train
-branch: dropout everywhere the JAX modules have it, the frozen Swin tower
-without gradient and with DropPath gates, ``detach`` where JAX has
-``stop_gradient``, no second pass, and ``aux_outputs`` per decoder layer.
+branch: dropout everywhere the JAX modules have it, DropPath in the Swin
+tower (gates into the canvas kernel, or per block on the module route), a
+frozen tower without gradient, ``detach`` where JAX has ``stop_gradient``,
+no second pass, and ``aux_outputs`` per decoder layer.
 """
 
 from __future__ import annotations
@@ -160,13 +164,18 @@ class VSTGNet(nn.Module):
         h_, w_ = res_feat.shape[1:3]
         if c.swin:
             last_stage = str(len(VIDEO_SWIN_CONFIGS[c.swin].depths) - 1)
-            gates = None if rng is None else self.vid.drop_path_gates(rng, V, video.frames.device)
-            if train and not c.freeze_swin:
-                swin_out = self.vid(video.frames, gates, use_kernels=False)[last_stage]
-            else:
-                # the reference runs its frozen Swin without gradient
+            if c.use_pallas_attention and (not train or c.freeze_swin):
+                # the canvas route: the kernel has no backward, and the
+                # reference runs its frozen Swin without gradient
+                gates = (None if rng is None
+                         else self.vid.drop_path_gates(rng, V, video.frames.device))
                 with torch.no_grad():
                     swin_out = self.vid(video.frames, gates)[last_stage]
+            else:
+                # the module route: a trainable tower in training, or the
+                # kernel routes off; a frozen tower runs without gradient
+                with torch.set_grad_enabled(torch.is_grad_enabled() and not c.freeze_swin):
+                    swin_out = self.vid(video.frames, route="module", rng=rng)[last_stage]
         else:
             swin_out = self.vid_stub(video.frames)
             if c.freeze_swin:

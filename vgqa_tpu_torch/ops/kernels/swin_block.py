@@ -1,39 +1,53 @@
-"""One whole Video Swin block on a window-padded canvas.
+"""One whole Video Swin block, on a window-padded canvas or on windows.
 
-Replaces ``vgqa_tpu/ops/pallas/swin_block.py:swin_block_canvas`` (body
-``_body_canvas``, math ``_compute_block`` and ``_tail``). The block reads the
-windows of ``roll(canvas, -roll)`` and computes
+Replaces two kernels of ``vgqa_tpu/ops/pallas/swin_block.py`` that share
+their math (``_compute_block`` and ``_tail``):
+
+* ``swin_block_canvas`` (body ``_body_canvas``) reads the windows of
+  ``roll(canvas, -roll)`` and writes its output in the rolled frame (the
+  caller unrolls once per stage);
+* ``swin_block_fused`` (body ``_body_sliced``) takes windows ``[W, N, C]``
+  that were partitioned outside and gives windows back.
+
+Both compute
 
     LN1 -> x valid -> qkv (scale folded into q) -> per-window MHA with the
     rel-pos bias [H, N, N] and the SW-MSA region mask -> proj -> residual ->
     LN2 -> fc1 -> exact GELU -> fc2 -> residual
 
-with optional per-sample DropPath branch gates ``[B, 2]``; its output stays
-in the rolled frame (the caller unrolls once per stage). The serving path
-runs it 12 times per forward: C = 96/192/384/768 with 3/6/12/24 heads of
-32, windows of 8x7x7 = 392 tokens, canvases of V = 2 clips x 64 frames.
+and the canvas block takes optional per-sample DropPath branch gates
+``[B, 2]``. The serving path runs the canvas block 12 times per forward:
+C = 96/192/384/768 with 3/6/12/24 heads of 32, windows of 8x7x7 = 392
+tokens, canvases of V = 2 clips x 64 frames. The windowed block serves
+``models/video_swin.py:fused_block_apply``, one block per call.
 
 On the H100 the block is bound by its products (the four linear layers
 carry ~8x the multiply-adds of the attention) and by the bytes of its
 intermediates: a plain PyTorch version also moves the [N, N] logits and
 probabilities of every head through device memory, plus a copy for each
-roll and window (un)partition. The port is a short chain of hand-written
-launches over the canvas (``csrc/kernels.cu``), all products on the
-tensor cores with f32 accumulation:
+roll and window (un)partition. The port is one short chain of hand-written
+launches (``csrc/kernels.cu``), all products on the tensor cores with f32
+accumulation, entered with row maps for the canvas and without them for
+windows:
 
-1. ``ln_rows_kernel`` reads each window token straight from its rolled
-   canvas row (a cached row map replaces roll + partition), applies LN1 and
-   the ``valid`` mask, and writes the tokens in window order;
+1. ``ln_rows_kernel`` reads each window token from its source row (for the
+   canvas a cached row map replaces roll + partition; windows are read in
+   place), applies LN1 and the ``valid`` mask, and writes the tokens in
+   window order;
 2. ``gemm_bf16_kernel`` computes qkv (scale folded into the q columns);
 3. ``window_attn_kernel`` runs the attention per (window, head) with an
    online softmax in registers, so logits and probabilities never reach
    device memory;
 4. ``gemm_bf16_kernel`` computes proj with bias, gate and the residual read
-   from the canvas fused in its epilogue;
+   from the source rows fused in its epilogue;
 5. ``ln_rows_kernel`` computes LN2;
 6. ``gemm_bf16_kernel`` computes fc1 with bias and exact ``erff`` GELU;
 7. ``gemm_bf16_kernel`` computes fc2 with bias, gate and residual, and
-   scatters each token to its canvas row in the rolled frame.
+   writes each token to its output row (for the canvas, its canvas row in
+   the rolled frame).
+
+A null row map is the identity in both kernels, so the windowed block
+passes none and allocates no M-long index map per call.
 
 The rounding points follow the TPU kernel (bf16 after each product and
 bias, P rounded to bf16 for P.V, f32 LayerNorm/softmax/GELU). One
@@ -41,8 +55,9 @@ difference: the TPU kernel skips the softmax max-subtraction and clamps
 logits at 80 (a VPU saving); this port subtracts the running row max
 instead, which is exact for any logits.
 
-``swin_block_canvas`` launches the chain for CUDA tensors (bf16 only) and
-runs ``swin_block_canvas_reference`` for CPU tensors; anything else raises.
+``swin_block_canvas`` / ``swin_block_fused`` launch the chain for CUDA
+tensors (bf16, head dim 32) and run ``swin_block_canvas_reference`` /
+``swin_block_fused_reference`` for CPU tensors; anything else raises.
 """
 
 from __future__ import annotations
@@ -106,6 +121,37 @@ def _tile_windows(vec: Optional[torch.Tensor], nW: int):
     return vec
 
 
+def _block_on_windows(xx, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+                      ln2_scale, ln2_bias, wfc1, bfc1, wfc2, bfc2, bias,
+                      num_heads, region, valid, gates) -> torch.Tensor:
+    """The block's math on windows ``xx`` [W, N, C], shared by both plain
+    versions. ``region``/``valid`` [rows, N]: window w reads row w % rows;
+    ``gates`` [W, 2] per window or None."""
+    W, N, C = xx.shape
+    dt = xx.dtype
+    h = _ln(xx, ln1_scale, ln1_bias)
+    if valid is not None:
+        h = h * wa._tile_rows(valid, W).float()[..., None]
+    h = h.to(dt)
+
+    wq, bq = _fold_q_scale(wqkv, bqkv, C, (C // num_heads) ** -0.5)
+    qkv = _mm(h, wq).to(dt) + bq.to(dt)
+    attn = wa.window_attention_reference(
+        qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], bias, region, None,
+        num_heads, scale=1.0)
+
+    proj = _mm(attn, wproj).to(dt) + bproj.to(dt)
+    if gates is not None:
+        proj = proj * gates[:, 0, None, None].to(dt)
+    x1 = xx + proj
+    h2 = _ln(x1, ln2_scale, ln2_bias).to(dt)
+    f = F.gelu(_mm(h2, wfc1) + bfc1.float(), approximate="none").to(dt)
+    f = _mm(f, wfc2).to(dt) + bfc2.to(dt)
+    if gates is not None:
+        f = f * gates[:, 1, None, None].to(dt)
+    return x1 + f
+
+
 def swin_block_canvas_reference(
     canvas: torch.Tensor,                 # [B, Dp, Hp, Wp, C] window-padded
     ln1_scale, ln1_bias,
@@ -126,36 +172,34 @@ def swin_block_canvas_reference(
     wd, wh, ww = window
     if Dp % wd or Hp % wh or Wp % ww:
         raise ValueError(f"canvas {tuple(canvas.shape)} is not window-padded for {window}")
-    N = wd * wh * ww
     nW = (Dp // wd) * (Hp // wh) * (Wp // ww)
-    dt = canvas.dtype
     rd, rh, rw = (int(r) % s for r, s in zip(roll, (Dp, Hp, Wp)))
     x = torch.roll(canvas, shifts=(-rd, -rh, -rw), dims=(1, 2, 3))
-    xx = _partition(x, window)                                  # [B*nW, N, C]
-
-    h = _ln(xx, ln1_scale, ln1_bias)
-    valid = _tile_windows(valid, nW)
-    if valid is not None:
-        h = h * valid.float().repeat(B, 1)[..., None]
-    h = h.to(dt)
-
-    wq, bq = _fold_q_scale(wqkv, bqkv, C, (C // num_heads) ** -0.5)
-    qkv = _mm(h, wq).to(dt) + bq.to(dt)
-    attn = wa.window_attention_reference(
-        qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], bias, region, None,
-        num_heads, scale=1.0)
-
     g = None if gates is None else gates.float().repeat_interleave(nW, dim=0)
-    proj = _mm(attn, wproj).to(dt) + bproj.to(dt)
-    if g is not None:
-        proj = proj * g[:, 0, None, None].to(dt)
-    x1 = xx + proj
-    h2 = _ln(x1, ln2_scale, ln2_bias).to(dt)
-    f = F.gelu(_mm(h2, wfc1) + bfc1.float(), approximate="none").to(dt)
-    f = _mm(f, wfc2).to(dt) + bfc2.to(dt)
-    if g is not None:
-        f = f * g[:, 1, None, None].to(dt)
-    return _reverse(x1 + f, window, B, Dp, Hp, Wp)
+    out = _block_on_windows(
+        _partition(x, window), ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+        ln2_scale, ln2_bias, wfc1, bfc1, wfc2, bfc2, bias, num_heads, region,
+        _tile_windows(valid, nW), g)
+    return _reverse(out, window, B, Dp, Hp, Wp)
+
+
+def swin_block_fused_reference(
+    x: torch.Tensor,                      # [W, N, C] partitioned windows
+    ln1_scale, ln1_bias,
+    wqkv, bqkv, wproj, bproj,             # [C, 3C], [3C], [C, C], [C]
+    ln2_scale, ln2_bias,
+    wfc1, bfc1, wfc2, bfc2,               # [C, 4C], [4C], [4C, C], [C]
+    bias: torch.Tensor,                   # [H, N, N] rel-pos bias
+    num_heads: int,
+    region: Optional[torch.Tensor] = None,  # [W or nW, N] SW-MSA region ids
+    valid: Optional[torch.Tensor] = None,   # [W or nW, N] 1 = real token
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`swin_block_fused` (same signature).
+    Weights use the JAX ``[in, out]`` layout; window w reads row w % rows
+    of ``region`` and ``valid``."""
+    return _block_on_windows(x, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+                             ln2_scale, ln2_bias, wfc1, bfc1, wfc2, bfc2, bias,
+                             num_heads, region, valid, None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -180,14 +224,81 @@ def _gemm(lib, stream, a, w_nk, bias, out, ldo, mode, res=None, ldr=0,
         a.data_ptr(), a.stride(0), w_nk.data_ptr(), w_nk.stride(0),
         build.ptr(bias), out.data_ptr(), ldo, M, N, K, mode,
         build.ptr(res), ldr, build.ptr(rowmap), build.ptr(gates), gate_col,
-        rows_per_sample, stream), "swin_block_canvas gemm")
+        rows_per_sample, stream), "swin block gemm")
 
 
 def _ln_rows(lib, stream, x, rowmap, scale, bias, valid, n_valid, out, M, C):
     build.check(lib.vgqa_ln_rows(
         x.data_ptr(), build.ptr(rowmap), scale.data_ptr(), bias.data_ptr(),
         build.ptr(valid), n_valid, out.data_ptr(), M, C, LN_EPS, stream),
-        "swin_block_canvas layernorm")
+        "swin block layernorm")
+
+
+def _takes_kernel(name: str, x: torch.Tensor, C: int, num_heads: int) -> bool:
+    """True for a CUDA tensor the kernel takes, False for a CPU tensor (the
+    plain version); raises for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bfloat16 (serve with TPU.COMPUTE_DTYPE "
+                        "bfloat16, train with TPU.TRAIN_DTYPE bfloat16), "
+                        f"not {x.dtype}")
+    if C // num_heads != wa.HEAD_DIM or C % num_heads:
+        raise ValueError(f"{name} kernel takes head dim {wa.HEAD_DIM}")
+    return True
+
+
+def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
+                  read_map=None, write_map=None, gates=None, rows_per_sample=1):
+    """The seven launches of one block over W windows of N tokens: token m
+    (window order) reads row ``read_map[m]`` of ``src`` [rows, C] and is
+    written to row ``write_map[m]`` of ``out`` (row m where a map is None).
+    ``valid`` [rows, N] reaches LN1 flat, token m reading entry
+    m % (rows * N)."""
+    (ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj,
+     ln2_scale, ln2_bias, wfc1, bfc1, wfc2, bfc2) = weights
+    C = src.shape[-1]
+    M = W * N
+    dev, bf = src.device, torch.bfloat16
+
+    def vec(t):
+        return t.to(device=dev, dtype=bf).contiguous()
+
+    def weight_nk(w):                     # [in, out] -> [out, in] rows
+        return w.to(device=dev, dtype=bf).t().contiguous()
+
+    wq, bq = _fold_q_scale(wqkv, bqkv, C, wa.HEAD_DIM ** -0.5)
+    n_valid = 1
+    if valid is not None:
+        valid = valid.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+        n_valid = valid.numel()
+    if gates is not None:
+        gates = gates.to(device=dev, dtype=torch.float32).contiguous()
+
+    lib = build.load_library()
+    st = build.stream_handle(dev)
+    h = torch.empty((M, C), dtype=bf, device=dev)
+    _ln_rows(lib, st, src, read_map, vec(ln1_scale), vec(ln1_bias), valid, n_valid,
+             h, M, C)
+    qkv = torch.empty((M, 3 * C), dtype=bf, device=dev)
+    _gemm(lib, st, h, weight_nk(wq), vec(bq), qkv, 3 * C, _EPI_BIAS)
+    attn = torch.empty((M, C), dtype=bf, device=dev)
+    q3 = qkv.view(W, N, 3 * C)
+    wa.launch(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:],
+              attn.view(W, N, C), num_heads, 1.0, bias=vec(bias), region=region)
+    x1 = torch.empty((M, C), dtype=bf, device=dev)
+    _gemm(lib, st, attn, weight_nk(wproj), vec(bproj), x1, C, _EPI_RES_GATHER,
+          res=src, ldr=C, rowmap=read_map, gates=gates, gate_col=0,
+          rows_per_sample=rows_per_sample)
+    h2 = torch.empty((M, C), dtype=bf, device=dev)
+    _ln_rows(lib, st, x1, None, vec(ln2_scale), vec(ln2_bias), None, 1, h2, M, C)
+    f = torch.empty((M, wfc1.shape[1]), dtype=bf, device=dev)
+    _gemm(lib, st, h2, weight_nk(wfc1), vec(bfc1), f, f.shape[1], _EPI_GELU)
+    _gemm(lib, st, f, weight_nk(wfc2), vec(bfc2), out, C, _EPI_RES_SCATTER,
+          res=x1, ldr=C, rowmap=write_map, gates=gates, gate_col=1,
+          rows_per_sample=rows_per_sample)
 
 
 def swin_block_canvas(
@@ -206,72 +317,60 @@ def swin_block_canvas(
 ) -> torch.Tensor:
     """One Swin block over the canvas; see the module docstring. Weights use
     the JAX ``[in, out]`` layout (pass ``linear.weight.t()``: no copy)."""
-    args = (canvas, ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, ln2_scale,
-            ln2_bias, wfc1, bfc1, wfc2, bfc2, bias, num_heads, window, roll,
-            region, valid, gates)
-    if canvas.device.type == "cpu":
-        return swin_block_canvas_reference(*args)
-    if canvas.device.type != "cuda":
-        raise RuntimeError(f"swin_block_canvas runs on cpu or cuda, not {canvas.device}")
-    if canvas.dtype != torch.bfloat16:
-        raise TypeError("swin_block_canvas kernel takes bfloat16 canvases (serve with "
-                        "TPU.COMPUTE_DTYPE bfloat16, train with TPU.TRAIN_DTYPE bfloat16), "
-                        f"not {canvas.dtype}")
+    weights = (ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, ln2_scale, ln2_bias,
+               wfc1, bfc1, wfc2, bfc2)
     B, Dp, Hp, Wp, C = canvas.shape
+    if not _takes_kernel("swin_block_canvas", canvas, C, num_heads):
+        return swin_block_canvas_reference(canvas, *weights, bias, num_heads, window,
+                                           roll, region, valid, gates)
     wd, wh, ww = (int(w) for w in window)
     if Dp % wd or Hp % wh or Wp % ww:
         raise ValueError(f"canvas {tuple(canvas.shape)} is not window-padded for {window}")
-    if C // num_heads != wa.HEAD_DIM or C % num_heads:
-        raise ValueError(f"swin_block_canvas kernel takes head dim {wa.HEAD_DIM}")
     N = wd * wh * ww
     nW = (Dp // wd) * (Hp // wh) * (Wp // ww)
-    M = B * nW * N
-    dev, bf = canvas.device, torch.bfloat16
     roll = tuple(int(r) % s for r, s in zip(roll, (Dp, Hp, Wp)))
-    read_map, write_map = _row_maps(B, Dp, Hp, Wp, (wd, wh, ww), roll, dev)
-
-    def vec(t):
-        return t.to(device=dev, dtype=bf).contiguous()
-
-    def weight_nk(w):                     # [in, out] -> [out, in] rows
-        return w.to(device=dev, dtype=bf).t().contiguous()
+    read_map, write_map = _row_maps(B, Dp, Hp, Wp, (wd, wh, ww), roll, canvas.device)
+    if gates is not None and tuple(gates.shape) != (B, 2):
+        raise ValueError(f"gates shape {tuple(gates.shape)} != {(B, 2)}")
 
     canvas = canvas.contiguous()
-    wq, bq = _fold_q_scale(wqkv, bqkv, C, wa.HEAD_DIM ** -0.5)
-    valid = _tile_windows(valid, nW)
-    if valid is not None:
-        valid = valid.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
-    if gates is not None:
-        gates = gates.to(device=dev, dtype=torch.float32).contiguous()
-        if gates.shape != (B, 2):
-            raise ValueError(f"gates shape {tuple(gates.shape)} != {(B, 2)}")
-
-    lib = build.load_library()
-    st = build.stream_handle(dev)
-    h = torch.empty((M, C), dtype=bf, device=dev)
-    _ln_rows(lib, st, canvas, read_map, vec(ln1_scale), vec(ln1_bias), valid,
-             nW * N, h, M, C)
-    qkv = torch.empty((M, 3 * C), dtype=bf, device=dev)
-    _gemm(lib, st, h, weight_nk(wq), vec(bq), qkv, 3 * C, _EPI_BIAS)
-    attn = torch.empty((M, C), dtype=bf, device=dev)
-    q3 = qkv.view(B * nW, N, 3 * C)
-    wa.launch(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:],
-              attn.view(B * nW, N, C), num_heads, 1.0, bias=vec(bias),
-              region=region)
-    x1 = torch.empty((M, C), dtype=bf, device=dev)
-    _gemm(lib, st, attn, weight_nk(wproj), vec(bproj), x1, C, _EPI_RES_GATHER,
-          res=canvas, ldr=C, rowmap=read_map, gates=gates, gate_col=0,
-          rows_per_sample=nW * N)
-    h2 = torch.empty((M, C), dtype=bf, device=dev)
-    _ln_rows(lib, st, x1, None, vec(ln2_scale), vec(ln2_bias), None, 1, h2, M, C)
-    f = torch.empty((M, wfc1.shape[1]), dtype=bf, device=dev)
-    _gemm(lib, st, h2, weight_nk(wfc1), vec(bfc1), f, f.shape[1], _EPI_GELU)
     out = torch.empty_like(canvas)
-    _gemm(lib, st, f, weight_nk(wfc2), vec(bfc2), out, C, _EPI_RES_SCATTER,
-          res=x1, ldr=C, rowmap=write_map, gates=gates, gate_col=1,
-          rows_per_sample=nW * N)
+    _launch_chain(canvas, out, B * nW, N, weights, bias, num_heads, region,
+                  _tile_windows(valid, nW), read_map, write_map, gates,
+                  rows_per_sample=nW * N)
     swin_block_canvas.launches += 1
     return out
 
 
 swin_block_canvas.launches = 0
+
+
+def swin_block_fused(
+    x: torch.Tensor,
+    ln1_scale, ln1_bias,
+    wqkv, bqkv, wproj, bproj,
+    ln2_scale, ln2_bias,
+    wfc1, bfc1, wfc2, bfc2,
+    bias: torch.Tensor,
+    num_heads: int,
+    region: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One Swin block on partitioned windows ``x`` [W, N, C]; see the module
+    docstring. Weights use the JAX ``[in, out]`` layout; ``region`` and
+    ``valid`` hold W or a divisor of W rows (window w reads row w % rows)."""
+    weights = (ln1_scale, ln1_bias, wqkv, bqkv, wproj, bproj, ln2_scale, ln2_bias,
+               wfc1, bfc1, wfc2, bfc2)
+    W, N, C = x.shape
+    if not _takes_kernel("swin_block_fused", x, C, num_heads):
+        return swin_block_fused_reference(x, *weights, bias, num_heads, region, valid)
+    if valid is not None and (valid.shape[-1] != N or W % valid.shape[0]):
+        raise ValueError(f"valid shape {tuple(valid.shape)} does not fit {W}x{N}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _launch_chain(x, out, W, N, weights, bias, num_heads, region, valid)
+    swin_block_fused.launches += 1
+    return out
+
+
+swin_block_fused.launches = 0
