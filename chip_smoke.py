@@ -48,8 +48,14 @@
    call), unmasked and with a key mask; K5 flash_gqa_causal at H 32 / Hkv 8
    / dh 128, Lq 1024, S 9216, length 8700, checked at q_offset 0 and 8192
    and timed at all 9 chunk offsets of a 32-frame prefill; K6 int4_matmul
-   at the four projection shapes and M = 1, 2, 64, and its device time for
-   one int4 decode token (224 products at M = 1) under the profiler.
+   at the four projection shapes and M = 1, 2, 64, its device time for
+   one int4 decode token (224 products at M = 1) under the profiler and its
+   host time per call (1,000 back-to-back calls at M = 1, 4096 x 1024).
+   Then the bf16 rounding of the QA path's int8 and int4 GEMMs: int8
+   quant_matmul at M = 1 and 16 (K 4096, N 4096 and 92,553) and the int4
+   half-matmul form at M = 1024 (K 4096, N 14,336) against the f32 product
+   of the same operands cast once; fails when more than 1% of the elements
+   differ.
 7. Serves video QA at the full InternVideo2.5-Chat-8B geometry
    (InternLM2.5-7B + InternViT-300M, random weights from seed 0, bf16,
    max_seq_len 9216): 32 random uint8 448 px tiles, a ~8.7k-token prompt,
@@ -507,6 +513,77 @@ def check_int4(dev, g):
                   f"kernel {ms:.4f} ms  plain {plain:.3f} ms  {lib_name} {lib:.4f} ms  "
                   f"bound {b_ms:.4f} ms ({b_by})")
         del packed, scale, w_bf16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int4_host_us(dev, g, calls=1000):
+    """K6's host time per call: the wall time of ``calls`` back-to-back
+    launches at M = 1, 4096 x 1024 (the device keeps up), over ``calls``;
+    then a synchronize."""
+    from vgqa_tpu_torch.ops.kernels.int4_matmul import int4_matmul
+
+    K, N = 4096, 1024
+    packed = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(K // 128, N, generator=g, device=dev) * 0.01
+    x = torch.randn(1, K, generator=g, device=dev).bfloat16()
+    for _ in range(20):
+        int4_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        int4_matmul(x, packed, scale)
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    print(f"K6 host time per call (M = 1, {K}x{N}, {calls} back-to-back calls): {us:.2f} us")
+    return us
+
+
+def check_quant_bf16(dev, g):
+    """The int8 and int4 GEMMs of the QA path round to bf16 once: each
+    product against the f32 product of the same bf16 operands, scaled, cast
+    once (the JAX form, ``preferred_element_type=float32``). Fails when
+    more than 1% of the elements differ (a product rounded to bf16 before
+    its scale or before the halves are added differs in ~26-37%)."""
+    from vgqa_tpu_torch.qa.quant import (matmul_f32, quant_matmul, quant_matmul_int4,
+                                         quantize_kernel, quantize_kernel_int4)
+    from vgqa_tpu_torch.ops.kernels.int4_matmul import int4_matmul_kernel_applicable
+
+    rows = []
+
+    def report(name, got, want):
+        frac = float((got != want).float().mean())
+        rel = rel_err(got, want)[0]
+        print(f"bf16 rounding {name}: {100 * frac:.4f}% of elements differ from the "
+              f"once-rounded f32 product (rel err {rel:.2e})")
+        if not frac <= 0.01:
+            raise AssertionError(f"{name}: {100 * frac:.2f}% of elements differ (> 1%)")
+        rows.append({"name": name, "frac_differ": frac, "rel_err": rel})
+
+    K = 4096
+    for N in (4096, 92553):
+        qp = quantize_kernel(torch.randn(K, N, generator=g, device=dev) * 0.05)
+        for M in (1, 16):
+            x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+            want = (x.float() @ qp["kernel_q"].float()).mul(qp["scale"]).bfloat16()
+            report(f"int8 quant_matmul M={M} K={K} N={N}", quant_matmul(x, qp), want)
+        del qp
+    M, N = 1024, 14336
+    qp = quantize_kernel_int4(torch.randn(K, N, generator=g, device=dev) * 0.05)
+    assert not int4_matmul_kernel_applicable(M, K, N, K // 128)
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    lo, hi = (qp["kernel_q4"] << 4) >> 4, qp["kernel_q4"] >> 4
+    n2 = qp["scale4"].shape[0] // 2
+    want = 0.0
+    for q, s, xs in ((lo, qp["scale4"][:n2], x[:, :K // 2]), (hi, qp["scale4"][n2:], x[:, K // 2:])):
+        w = (q.bfloat16().reshape(n2, 128, N) * s[:, None, :].bfloat16()).reshape(K // 2, N)
+        want = want + xs.float() @ w.float()
+    report(f"int4 half form M={M} K={K} N={N}", quant_matmul_int4(x, qp), want.bfloat16())
+    y = matmul_f32(x[:, :K // 2], lo.bfloat16())      # aten::mm.dtype on the card
+    if y.dtype != torch.float32:
+        raise AssertionError(f"matmul_f32 returned {y.dtype}")
+    del qp, lo, hi, x, want, y
     torch.cuda.empty_cache()
     return rows
 
@@ -1135,6 +1212,8 @@ def main() -> int:
     k5_rows = check_flash_gqa(dev, g)
     k6_rows = check_int4(dev, g)
     k6_token_ms = int4_token_device_ms(dev, g)
+    k6_host_us = int4_host_us(dev, g)
+    quant_rows = check_quant_bf16(dev, g)
     torch.cuda.empty_cache()
 
     serve_launches = serve(dev, card)
@@ -1215,7 +1294,7 @@ def main() -> int:
         dict(qa_row("int4_matmul", "vgqa_tpu/ops/pallas/int4_matmul.py:145", qa_l,
                     [next(r for r in k6_rows if (r["K"], r["N"], r["M"]) == (k, n, 1))
                      for k, n, _ in QA_PROJ], 32, k6_rows),
-             device_ms_per_token=k6_token_ms),
+             device_ms_per_token=k6_token_ms, host_us_per_call=k6_host_us),
     ]}
     print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
           "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124), over one "
@@ -1233,7 +1312,9 @@ def main() -> int:
           "projections; library: see the K6 lines); QA launches over the bf16, int4, "
           f"sampled and batched chats; QA last-prompt-token logits kernel vs plain routes "
           f"rel err bf16 {qa['rel_bf16']:.3e}, int4 {qa['rel_int4']:.3e} (K4, K5); int4 "
-          f"decode-step logits {qa['rel_int4_decode']:.3e} (K6)  [{card}]")
+          f"decode-step logits {qa['rel_int4_decode']:.3e} (K6); K6 host {k6_host_us:.2f} us "
+          f"per call; bf16 GEMMs rounded once: at most "
+          f"{100 * max(r['frac_differ'] for r in quant_rows):.4f}% of elements differ  [{card}]")
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -231,22 +231,29 @@ def test_flash_gqa_causal_kernel_cuda(cuda, q_offset, length):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 5, 64])
-@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (1024, 90)])
-def test_int4_matmul_kernel_cuda(cuda, M, K, N):
-    """K6 at the production shapes and M up to the gate's 64, against the
-    plain per-group version on the same bf16 activations."""
-    g = torch.Generator(device=cuda).manual_seed(M + K + N)
-    n_g = K // 128
+@pytest.mark.parametrize("M", [1, 2, 5, 16, 64])
+@pytest.mark.parametrize("K,N,g", [(4096, 4096, 128), (4096, 1024, 128), (14336, 4096, 128),
+                                   (4096, 14336, 128), (1024, 90, 128), (1024, 512, 8),
+                                   (1024, 512, 1), (96, 64, 24), (96, 64, 3)])
+def test_int4_matmul_kernel_cuda(cuda, M, K, N, g):
+    """K6 at the production shapes, M up to the gate's 64 and every kind of
+    group size the gate admits (a multiple of 16, a power of 2 below 16, an
+    odd divisor of a small K/2), against the plain per-group version on the
+    same bf16 activations; a second call gives the same bits (the split-K
+    sum does not depend on the order in which the blocks ran)."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N + g)
+    n_g = K // g
     assert int4_matmul_kernel_applicable(M, K, N, n_g)
-    packed = torch.randint(-128, 128, (K // 2, N), generator=g, device=cuda,
+    packed = torch.randint(-128, 128, (K // 2, N), generator=gen, device=cuda,
                            dtype=torch.int32).to(torch.int8)
-    scale = torch.rand(n_g, N, generator=g, device=cuda) * 0.01
-    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    scale = torch.rand(n_g, N, generator=gen, device=cuda) * 0.01
+    x = torch.randn(M, K, generator=gen, device=cuda).bfloat16()
     before = int4_matmul.launches
     out = int4_matmul(x, packed, scale)
+    again = int4_matmul(x, packed, scale)
     ref = int4_matmul_reference(x, packed, scale)
     torch.cuda.synchronize()
-    assert int4_matmul.launches == before + 1
+    assert int4_matmul.launches == before + 2
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert torch.equal(out, again)
     assert _rel_err(out, ref.float()) < CUDA_REL

@@ -1,6 +1,6 @@
 """Guards of the port's boundaries: no module of ``vgqa_tpu_torch`` (nor
-``chip_smoke.py``) imports the JAX stack or anything of ``vgqa_tpu``; the
-entry points run on the card unless the caller asks for the CPU; and the
+``chip_smoke.py`` or ``chip_k6.py``) imports the JAX stack or anything of
+``vgqa_tpu``; the entry points run on the card unless the caller asks for the CPU; and the
 port's copy of the tokenizer gives vgqa_tpu's ids."""
 
 import ast
@@ -21,6 +21,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_k6.py")
 
 
 def _imported(tree):

@@ -2,252 +2,427 @@
 // interface: the port of vgqa_tpu/ops/pallas/int4_matmul.py (int4_matmul,
 // Pallas _int4_kernel).
 //
-//   y[m, n] = sum_j scale[j, n] * sum_{k in group j} x[m, k] * w[k, n]
+//   y[m, n] = bf16( sum_j scale[j, n] * sum_{k in group j} x[m, k] * w[k, n] )
 //
 // with the split-half pack of qa/quant.quantize_kernel_int4: packed[k, n]
 // (int8, [K/2, N], N contiguous) holds row k's weight in its low nibble and
-// row K/2 + k's in its high nibble, both sign-extended by arithmetic shifts;
-// group j covers rows [j*g, (j+1)*g), so packed row k belongs to group
-// k / g in the low half and n_g/2 + k / g in the high half. x is bf16
-// [M, K] (contiguous), scale f32 [n_g, N].
+// row K/2 + k's in its high nibble; group j covers rows [j*g, (j+1)*g), so
+// packed row k belongs to group k / g in the low half and n_g/2 + k / g in
+// the high half. x is bf16 [M, K] (M <= 64), scale f32 [n_g, N].
 //
-// At decode (M = 1 or 2) the work is two multiply-adds per packed byte, so
-// the bound is the bytes of the packed weights (K*N/2) plus the scales. The
-// design keeps every weight byte read once and coalesced: a thread owns 4
-// adjacent columns (one 32-bit load per packed row, a warp reads 128
-// contiguous bytes), 128 threads cover 512 columns, and the contraction is
-// split in slices of `kch` packed rows (a divisor of g), so that enough
-// loads are in flight to cover the memory latency. A block holds up to 4
-// such groups of 128 threads on consecutive slices; each stages its x rows
-// (both halves) in shared memory, accumulates the low- and high-nibble
-// sums in f32 registers for MT rows of x and applies its two group scales,
-// and the groups add their sums in shared memory in a fixed order. The
-// block writes that sum to an f32 scratch [chunks, M, N]. The last block of
-// a (column tile, row tile) to finish, found by an arrival counter, adds
-// that tile's chunks in a fixed order and rounds to bf16: one launch per
-// product, and the result does not depend on the order in which the blocks
-// ran. Grouping the slices in a block cuts the scratch and the last block's
-// reads 4-fold. The counters live in a buffer the caller keeps zeroed
-// between calls on a stream; the last block resets its own. The nibbles
-// are unpacked in registers, so no dequantized weight reaches memory.
+// What bounds it on an H100: at decode (M = 1 or 2) a packed byte feeds
+// four multiply-adds, far below the card's ~295 operations per byte, so the
+// bound is the packed bytes plus the scales (3.5 GB per 32-layer token,
+// 1.1 ms at 3.35 TB/s). The design keeps the SM's instruction issue off
+// that path:
+//
+// * Tensor cores do the contraction. Each warp owns a strip of 16*NT
+//   columns and treats the weight as the A operand of mma.sync.m16n8k16
+//   (rows = 16 columns of N, depth = 16 packed rows) and x as B (8 rows of
+//   M per m-tile; at M <= 8 the unused rows are zeros). The low and high
+//   nibbles of one byte are two A operands against two B operands (x's
+//   columns k and K/2 + k). Which of the 16 columns an A row stands for,
+//   and which packed row a depth slot stands for, is free: lane (gid, t)
+//   reads 2*NT adjacent bytes of packed rows 2t, 2t+1, 2t+8, 2t+9 of the
+//   16-row step, and n-tile i takes byte 2i for A row gid and byte 2i+1 for
+//   row gid+8. So a lane's bytes are contiguous in memory and no byte is
+//   read twice.
+// * Nibbles become bf16 without integer-to-float conversions: one
+//   __byte_perm pairs the bytes of two rows, and for each of the four
+//   (column, nibble) pairs one shift and one and-xor (lop3) make
+//   0x4300 | (u ^ 8) = 136 + u in each bf16 half; one bf16x2 subtraction of
+//   136 gives the signed nibble u exactly. Two values per 32-bit operation.
+// * Each warp streams its strip through a private 4-stage shared-memory
+//   ring filled by 16-byte cp.async (L1 bypassed), three 16-row steps ahead
+//   of the tensor cores: the packed rows, x's 16 columns of both halves for
+//   the step (rows below M only), and at a group's last step the group's
+//   two scale rows. No global load sits on the step's dependency chain;
+//   each lane's copy addresses are computed once; rows are padded so that
+//   the lanes' reads back are free of bank conflicts. (Deeper rings, 6 or 8
+//   stages, measured slower on the H100: fewer blocks fit on an SM.)
+// * Every group keeps its own f32 partial per nibble half, and at the
+//   group's end total = total + part_lo * scale_lo + part_hi * scale_hi,
+//   as the Pallas kernel does; the output is rounded to bf16 once. A step
+//   holds gcd(g, 16) packed rows (16 for the trees' g = 128), the rest of
+//   its depth slots zero, so the kernel takes every group size the gate
+//   admits (g = 1, 2, 4, 8, or any divisor of K/2 below 512); x's columns
+//   of such steps are copied element by element.
+// * The grid fills the card: a block is wk warps (4 where the groups allow)
+//   on one strip and wk consecutive runs of kg groups; the launch plan
+//   (ops/kernels/int4_matmul.py, _plan) takes strips of 64 columns (NT = 4)
+//   and narrows them for small N; at M <= 8 it picks kg so that the grid
+//   fits on the card at once (4 blocks per SM), past 8 rows, where a warp
+//   holds twice the fragments, the fewest blocks from one per SM up. Every
+//   plan was timed on the H100 to choose these rules (chip_k6.py). At M > 8
+//   all m-tiles of a strip live in one warp (NT * MT <= 8 bounds the f32
+//   fragments), so each packed byte is read once for any M <= 64.
+// * Split-K is deterministic and stays on chip: the blocks that share a
+//   strip (its chunks, at most 8) form one thread-block cluster. Each warp
+//   leaves its sums in its own ring; after one cluster barrier every block
+//   reads, for its slice of the strip, all warps' sums of all the cluster's
+//   blocks through distributed shared memory (all loads issued before the
+//   adds) and adds them in (chunk, warp) order. No partials go to device
+//   memory, no counters are kept, and a strip of one chunk is an ordinary
+//   launch.
+//
+// wgmma is not used: at M <= 64 the product sits below the card's
+// ops-per-byte line, and mma.sync keeps each warp's strip independent (no
+// warpgroup-wide tiles of 64 rows of M, which decode does not have).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int I4_LANES = 128;                     // threads per column group
-constexpr int I4_COLS = 4;                        // columns per thread
-constexpr int I4_BN = I4_LANES * I4_COLS;         // columns per block
-constexpr int I4_MAX_GROUPS = 4;                  // K slices per block
-constexpr int I4_MAX_SPAN = 512;                  // packed rows per block, at most
+constexpr int I4_MAX_WARPS = 4;
+constexpr int I4_MAX_CLUSTER = 8;     // the portable cluster size: chunks per strip
 
-// Block (column tile bx, chunk kc, row tile bz) of G = blockDim.x / 128
-// groups: group j contracts packed rows [kc*G*kch + j*kch, + kch) for 512
-// columns and MT rows of x, scales its sums by its row group's scales, and
-// the groups add their results in shared memory in the order j = 0..G-1.
-// The block writes that sum as chunk kc's partial; the last block of the
-// (bx, bz) tile to arrive adds the tile's chunks, group j taking chunks
-// j, j + G, ..., and the groups' sums again in the order j = 0..G-1.
-template <int MT>
-__global__ void __launch_bounds__(I4_LANES * I4_MAX_GROUPS) int4_matmul_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ packed,
-    const float* __restrict__ scale, float* __restrict__ partial, unsigned* __restrict__ arrivals,
-    bf16* __restrict__ y, int M, int K, int N, int g, int kch) {
-  __shared__ float sm[MT * 2 * I4_MAX_SPAN];      // the x slice, then the group sums
-  __shared__ bool last;
-  float(*xs)[2][I4_MAX_SPAN] = reinterpret_cast<float(*)[2][I4_MAX_SPAN]>(sm);
-  float* red = sm;                                 // [MT][I4_BN] once xs is consumed
-  const int G = blockDim.x / I4_LANES, grp_id = threadIdx.x / I4_LANES;
-  const int lane = threadIdx.x % I4_LANES;
-  const int K2 = K / 2, ng2 = K2 / g, chunks = gridDim.y, span = G * kch;
-  const int kc = blockIdx.y, kb = kc * span;      // block rows [kb, kb + span)
-  const int kg = grp_id * kch;                    // this group's rows, from kb
-  const int sg = (kb + kg) / g;                   // their low-half scale row
-  const int m0 = blockIdx.z * MT;
-  const int n0 = blockIdx.x * I4_BN + lane * I4_COLS;
-  const long long MN = (long long)M * N;
-  const bool vec = (N % 4 == 0);                  // n0 % 4 == 0 too: aligned vector access
-  const bool cols = n0 < N;
-
-  for (int i = threadIdx.x; i < MT * 2 * span; i += blockDim.x) {
-    const int mm = i / (2 * span), rest = i % (2 * span), half = rest / span, kk = rest % span;
-    const int m = m0 + mm;
-    xs[mm][half][kk] =
-        m < M ? __bfloat162float(x[(long long)m * K + half * K2 + kb + kk]) : 0.f;
-  }
-  __syncthreads();
-
-  float acc[MT][I4_COLS];                         // this group's scaled sums
-  if (cols) {
-    float acch[MT][I4_COLS];
-#pragma unroll
-    for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-      for (int c = 0; c < I4_COLS; ++c) acc[mm][c] = acch[mm][c] = 0.f;
-
-    const int8_t* prow = packed + (long long)(kb + kg) * N + n0;
-#pragma unroll 8
-    for (int kk = 0; kk < kch; ++kk) {
-      int b[I4_COLS];
-      if (vec) {
-        const uint32_t word = __ldg(reinterpret_cast<const uint32_t*>(prow + (long long)kk * N));
-#pragma unroll
-        for (int c = 0; c < I4_COLS; ++c) b[c] = (int)(int8_t)((word >> (8 * c)) & 0xFFu);
-      } else {
-#pragma unroll
-        for (int c = 0; c < I4_COLS; ++c)
-          b[c] = n0 + c < N ? (int)__ldg(prow + (long long)kk * N + c) : 0;
-      }
-#pragma unroll
-      for (int c = 0; c < I4_COLS; ++c) {
-        const float wl = (float)((int)((unsigned)b[c] << 28) >> 28);   // low nibble, sign-extended
-        const float wh = (float)(b[c] >> 4);          // high nibble, arithmetic shift
-#pragma unroll
-        for (int mm = 0; mm < MT; ++mm) {
-          acc[mm][c] = fmaf(xs[mm][0][kg + kk], wl, acc[mm][c]);
-          acch[mm][c] = fmaf(xs[mm][1][kg + kk], wh, acch[mm][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < I4_COLS; ++c) {
-      const int n = min(n0 + c, N - 1);
-      const float sl = scale[(long long)sg * N + n], sh = scale[(long long)(ng2 + sg) * N + n];
-#pragma unroll
-      for (int mm = 0; mm < MT; ++mm) acc[mm][c] = acc[mm][c] * sl + acch[mm][c] * sh;
-    }
-  }
-  __syncthreads();                                // xs is consumed: sm becomes red
-
-  // red[mm][lane*4 + c] = sum over the groups, in order, of acc[mm][c]
-  auto add_groups = [&](const float (&a)[MT][I4_COLS]) {
-    for (int j = 0; j < G; ++j) {
-      if (grp_id == j && cols) {
-#pragma unroll
-        for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-          for (int c = 0; c < I4_COLS; ++c) {
-            float* r = red + mm * I4_BN + lane * I4_COLS + c;
-            *r = j == 0 ? a[mm][c] : *r + a[mm][c];
-          }
-      }
-      __syncthreads();
-    }
-  };
-  add_groups(acc);
-  if (grp_id == 0 && cols) {
-#pragma unroll
-    for (int mm = 0; mm < MT; ++mm) {
-      const int m = m0 + mm;
-      if (m >= M) break;
-#pragma unroll
-      for (int c = 0; c < I4_COLS; ++c)
-        if (n0 + c < N) partial[kc * MN + (long long)m * N + n0 + c] = red[mm * I4_BN + lane * I4_COLS + c];
-    }
-  }
-
-  // arrival: this block's partial is visible device-wide before the count
-  // rises; the block that brings the count to `chunks` reduces the tile
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) last = atomicAdd(&arrivals[tile], 1u) == (unsigned)(chunks - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // loads go through L2 (__ldcg), where the other blocks' writes are
-#pragma unroll
-  for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-    for (int c = 0; c < I4_COLS; ++c) acc[mm][c] = 0.f;
-  if (cols) {
-#pragma unroll
-    for (int mm = 0; mm < MT; ++mm) {
-      const int m = m0 + mm;
-      if (m >= M) break;
-      if (vec) {                                  // one 16-byte load per chunk
-        const float4* src = reinterpret_cast<const float4*>(partial + (long long)m * N + n0);
-#pragma unroll 8
-        for (int k = grp_id; k < chunks; k += G) {
-          const float4 v = __ldcg(src + k * (MN / 4));
-          acc[mm][0] += v.x; acc[mm][1] += v.y; acc[mm][2] += v.z; acc[mm][3] += v.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < I4_COLS; ++c) {
-          if (n0 + c >= N) break;
-          const float* src = partial + (long long)m * N + n0 + c;
-          for (int k = grp_id; k < chunks; k += G) acc[mm][c] += __ldcg(src + k * MN);
-        }
-      }
-    }
-  }
-  add_groups(acc);
-  if (grp_id == 0 && cols) {
-#pragma unroll
-    for (int mm = 0; mm < MT; ++mm) {
-      const int m = m0 + mm;
-      if (m >= M) break;
-#pragma unroll
-      for (int c = 0; c < I4_COLS; ++c)
-        if (n0 + c < N) y[(long long)m * N + n0 + c] = __float2bfloat16(red[mm * I4_BN + lane * I4_COLS + c]);
-    }
-  }
-  if (threadIdx.x == 0) arrivals[tile] = 0u;     // zero again for the next call
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
 }
 
-template <int MT>
-void launch_mt(dim3 grid, int groups, cudaStream_t st, const bf16* x, const int8_t* packed,
-               const float* scale, float* partial, unsigned* arrivals, bf16* y, int M, int K,
-               int N, int g, int kch) {
-  int4_matmul_kernel<MT><<<grid, I4_LANES * groups, 0, st>>>(x, packed, scale, partial, arrivals,
-                                                             y, M, K, N, g, kch);
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the low nibbles of bytes 0 and 2 of v, sign-extended, as bf16x2 (byte 0's
+// in the low half): 0x4300 | (u ^ 8) is the bf16 of 136 + u
+__device__ __forceinline__ uint32_t nib2(uint32_t v) {
+  uint32_t r = (v & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 h, k;
+  const uint32_t c136 = 0x43084308u;
+  memcpy(&h, &r, 4);
+  memcpy(&k, &c136, 4);
+  h = __hsub2(h, k);
+  memcpy(&r, &h, 4);
+  return r;
+}
+
+// this lane's 2*NT bytes of one packed row of the stage, as 32-bit words
+template <int NT>
+__device__ __forceinline__ void lds_row(uint32_t (&w)[NT >= 2 ? NT / 2 : 1], const uint8_t* p) {
+  if constexpr (NT == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (NT == 2) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+// Shared memory of one warp: its ring of stages. A stage holds 16 packed
+// rows, x's 16 columns of both halves, and the scale rows of the group
+// that ends at this step. After the loop the ring holds the warp's sums.
+template <int NT, int MT>
+struct I4Smem {
+  static constexpr int STAGES = 4;                        // ring depth (a power of 2)
+  static constexpr int CW = 16 * NT;                      // columns per strip
+  static constexpr int S = NT == 1 ? CW + 32 : CW + 16;   // weight row pitch: conflict-free reads
+  static constexpr int XP = 80;                           // x row pitch (2 halves x 16 bf16 + pad)
+  static constexpr int WBYTES = 16 * S;
+  static constexpr int XBYTES = 8 * MT * XP;
+  static constexpr int STAGE = WBYTES + XBYTES + 2 * CW * 4;
+  static constexpr int WARP = STAGES * STAGE;
+  static_assert(WARP >= 8 * MT * CW * 4, "the ring holds the warp's sums");
+  static constexpr int bytes(int wk) { return wk * WARP; }
+};
+
+// Block (strip bx, chunk by) of wk warps: warp w contracts the low-half
+// groups [(by*wk + w)*kg, +kg) (and their high-half twins) for the strip's
+// 16*NT columns and all rows of x (MT m-tiles of 8). The chunks of a strip
+// form one thread-block cluster (1 x chunks), which adds its warps' sums
+// through distributed shared memory.
+template <int NT, int MT>
+__global__ void __launch_bounds__(32 * I4_MAX_WARPS) int4_matmul_kernel(
+    const bf16* __restrict__ x, const int8_t* __restrict__ packed,
+    const float* __restrict__ scale, bf16* __restrict__ y, int M, int K, int N, int g, int kg) {
+  using L = I4Smem<NT, MT>;
+  constexpr int NW = NT >= 2 ? NT / 2 : 1;        // 32-bit words per lane per packed row
+  constexpr int CW = L::CW, S = L::S, XP = L::XP, STAGES = L::STAGES;
+  constexpr int RSTEP = 32 / NT;                  // rows between a lane's copies of one step
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane >> 2, t = lane & 3;
+  const int wk = blockDim.x / 32, chunks = gridDim.y;
+  // a step holds sr = gcd(g, 16) packed rows in its first depth slots
+  // (zeros in the rest), so no step straddles two groups
+  const int sr = (g & -g) < 16 ? (g & -g) : 16, spg = g / sr;
+  const int K2 = K / 2, n2 = K2 / g;
+  const int col0 = blockIdx.x * CW;                      // the strip
+  const bool vec = N % 16 == 0;
+  const int r0 = (blockIdx.y * wk + warp) * kg * g;      // the warp's first packed row
+  const int steps = kg * spg;
+  const int rows = M < 8 * MT ? M : 8 * MT;
+  uint8_t* wsm = smem + warp * L::WARP;
+
+  // this lane's copies, fixed but for the step: packed row lane / NT (+ k
+  // RSTEP), 16 bytes at column 16 (lane % NT); x row lane / 4 (+ 8k),
+  // half and 8 columns by lane % 4
+  const int wr = lane / NT, wq = lane % NT;
+  const bool wok = wr < 16 && col0 + 16 * wq < N;
+  const int8_t* wsrc = packed + (wok ? (long long)(r0 + wr) * N + col0 + 16 * wq : 0);
+  const int xm = lane / 4, xh = (lane / 2) % 2, xq = lane % 2;
+  const bf16* xsrc = x + (long long)(xm < rows ? xm : 0) * K + xh * K2 + r0 + 8 * xq;
+
+  // step u: packed rows [r0 + sr u, +sr) and x's columns of both halves
+  // into stage u % STAGES (rows and columns past sr zero-filled); at a
+  // group's last step (us == spg - 1) also that group's scale rows
+  auto issue = [&](int u, int us) {
+    uint8_t* dst = wsm + (u & (STAGES - 1)) * L::STAGE;
+    const int row = r0 + sr * u;
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < (NT >= 2 ? NT / 2 : 1); ++k)
+        if (NT >= 2 || lane < 16) {
+          const bool ok = wok && wr + k * RSTEP < sr;
+          cp_async16(dst + (wr + k * RSTEP) * S + 16 * wq,
+                     ok ? wsrc + (long long)(sr * u + k * RSTEP) * N : packed, ok);
+        }
+    } else {                                     // rows not 16-byte aligned: byte copies
+      const long long rb = (long long)row * N;
+      for (int b = lane; b < 16 * CW; b += 32) {
+        const int r = b / CW, cc = b % CW, col = col0 + cc;
+        dst[r * S + cc] = r < sr && col < N ? (uint8_t)packed[rb + (long long)r * N + col] : 0;
+      }
+    }
+    if (sr == 16) {
+#pragma unroll
+      for (int k = 0; k < MT; ++k) {             // (m, half, 8 columns) for m < M
+        const int m = xm + 8 * k;
+        if (m < rows)
+          cp_async16(dst + L::WBYTES + m * XP + 32 * xh + 16 * xq,
+                     xsrc + (long long)8 * k * K + 16 * u, true);
+      }
+    } else {                                     // groups of fewer than 16 rows: element copies
+      for (int i = lane; i < rows * 32; i += 32) {
+        const int m = i / 32, h = (i / 16) % 2, c = i % 16;
+        reinterpret_cast<bf16*>(dst + L::WBYTES + m * XP + 32 * h)[c] =
+            c < sr ? x[(long long)m * K + h * K2 + row + c] : __float2bfloat16(0.f);
+      }
+    }
+    if (us == spg - 1) {
+      float* sdst = reinterpret_cast<float*>(dst + L::WBYTES + L::XBYTES);
+      const int j = row / g;
+      if (vec) {
+        for (int c = lane; c < CW / 2; c += 32) {  // two rows of CW floats, 4 per copy
+          const int hh = c / (CW / 4), q = c % (CW / 4), col = col0 + 4 * q;
+          const bool ok = col < N;
+          cp_async16(sdst + hh * CW + 4 * q,
+                     scale + (ok ? (long long)(j + hh * n2) * N + col : 0), ok);
+        }
+      } else {
+        for (int c = lane; c < 2 * CW; c += 32) {
+          const int hh = c / CW, col = col0 + c % CW;
+          sdst[c] = col < N ? scale[(long long)(j + hh * n2) * N + col] : 0.f;
+        }
+      }
+    }
+  };
+
+  float tot[NT][MT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[i][mt][e] = 0.f;
+  float part[2][NT][MT][4];
+
+  int ius = 0;                                   // (u + STAGES - 1) % spg for the issue
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) {
+    if (u < steps) issue(u, ius);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (++ius == spg) ius = 0;
+  }
+
+  int us = 0;                                    // u % spg
+  for (int u = 0; u < steps; ++u) {
+    if (us == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[h][i][mt][e] = 0.f;
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    __syncwarp();
+    if (u + STAGES - 1 < steps) issue(u + STAGES - 1, ius);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (++ius == spg) ius = 0;
+
+    const uint8_t* stage = wsm + (u & (STAGES - 1)) * L::STAGE;
+    const uint8_t* tile = stage + gid * 2 * NT;
+    uint32_t w[4][NW];                            // rows 2t, 2t+1, 2t+8, 2t+9
+    lds_row<NT>(w[0], tile + (2 * t) * S);
+    lds_row<NT>(w[1], tile + (2 * t + 1) * S);
+    lds_row<NT>(w[2], tile + (2 * t + 8) * S);
+    lds_row<NT>(w[3], tile + (2 * t + 9) * S);
+
+    uint32_t b[2][MT][2];                         // x rows mt*8 + gid, depth slots 2t.., 2t+8..
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = mt * 8 + gid < M;          // rows past M are zeros
+        const uint8_t* xr = stage + L::WBYTES + (mt * 8 + gid) * XP + 32 * h + 4 * t;
+        b[h][mt][0] = ok ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
+        b[h][mt][1] = ok ? *reinterpret_cast<const uint32_t*>(xr + 16) : 0u;
+      }
+
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const unsigned sel = (i & 1) ? 0x7632u : 0x5410u;   // bytes 2i, 2i+1 of two rows
+      const uint32_t ab = __byte_perm(w[0][i / 2], w[1][i / 2], sel);
+      const uint32_t cd = __byte_perm(w[2][i / 2], w[3][i / 2], sel);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sh = 4 * h;
+        const uint32_t a[4] = {nib2(ab >> sh), nib2(ab >> (8 + sh)), nib2(cd >> sh),
+                               nib2(cd >> (8 + sh))};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma16816(part[h][i][mt], a, b[h][mt][0], b[h][mt][1]);
+      }
+    }
+
+    if (us == spg - 1) {                          // group done: scale and add
+      const float* sl = reinterpret_cast<const float*>(stage + L::WBYTES + L::XBYTES) + gid * 2 * NT;
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {             // A rows gid (column 2i), gid+8 (2i+1)
+          const float lo = sl[2 * i + (e >> 1)], hi = sl[CW + 2 * i + (e >> 1)];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            tot[i][mt][e] = tot[i][mt][e] + part[0][i][mt][e] * lo + part[1][i][mt][e] * hi;
+        }
+    }
+    if (++us == spg) us = 0;
+  }
+
+  // the warp's sums into its own ring (free now): red[m][c], c = column - col0
+  __syncwarp();
+  float* red = reinterpret_cast<float*>(wsm);
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(mt * 8 + 2 * t + (e & 1)) * CW + gid * 2 * NT + 2 * i + (e >> 1)] = tot[i][mt][e];
+
+  // every block of the cluster (the strip's chunks) adds all warps' sums,
+  // chunk by chunk and warp by warp in order, for its slice of the strip
+  // (one chunk: no cluster, the block's own shared memory)
+  cg::cluster_group cluster = cg::this_cluster();
+  if (chunks > 1) cluster.sync(); else __syncthreads();
+  // all of an element's loads are issued before its adds (one round trip
+  // through the cluster), then added in the fixed order
+  for (int idx = blockIdx.y * blockDim.x + threadIdx.x; idx < rows * CW;
+       idx += chunks * blockDim.x) {
+    const int m = idx / CW, n = col0 + idx % CW;
+    float v[I4_MAX_CLUSTER][I4_MAX_WARPS];
+#pragma unroll
+    for (int c = 0; c < I4_MAX_CLUSTER; ++c) {
+      const float* peer = c >= chunks ? nullptr
+                          : chunks > 1 ? cluster.map_shared_rank(reinterpret_cast<float*>(smem), c)
+                                       : reinterpret_cast<float*>(smem);
+#pragma unroll
+      for (int wi = 0; wi < I4_MAX_WARPS; ++wi)
+        v[c][wi] = (c < chunks && wi < wk) ? peer[wi * (L::WARP / 4) + idx] : 0.f;
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < I4_MAX_CLUSTER; ++c)
+#pragma unroll
+      for (int wi = 0; wi < I4_MAX_WARPS; ++wi)
+        if (c < chunks && wi < wk) s += v[c][wi];
+    if (n < N) y[(long long)m * N + n] = __float2bfloat16(s);
+  }
+  if (chunks > 1) cluster.sync();                // peers read this block's sums until here
+}
+
+template <int NT, int MT>
+int launch(dim3 grid, int wk, cudaStream_t st, const bf16* x, const int8_t* packed,
+           const float* scale, bf16* y, int M, int K, int N, int g, int kg) {
+  static unsigned long long ready = 0;           // devices whose shared memory limit is set
+  const int bytes = I4Smem<NT, MT>::bytes(wk);
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  if (device >= 64 || !(ready >> device & 1ull)) {
+    e = cudaFuncSetAttribute(int4_matmul_kernel<NT, MT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             I4Smem<NT, MT>::bytes(I4_MAX_WARPS));
+    if (e != cudaSuccess) return (int)e;
+    if (device < 64) ready |= 1ull << device;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * wk);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.y > 1 ? 1 : 0;             // one chunk: an ordinary launch
+  return (int)cudaLaunchKernelEx(&cfg, int4_matmul_kernel<NT, MT>, x, packed, scale, y, M, K, N,
+                                 g, kg);
 }
 
 }  // namespace
 
 extern "C" {
 
-// y [M, N] bf16 = x [M, K] bf16 @ dequant4(packed [K/2, N], scale [n_g, N]);
-// partial is f32 scratch of at least (K/2 / kch) * M * N elements, arrivals a zeroed
-// uint32 buffer of at least vgqa_int4_matmul_tiles(M, N) entries (zero
-// again when the launch has run).
-int vgqa_int4_matmul_tiles(int M, int N) {
-  const int mt = M >= 8 ? 8 : (M >= 4 ? 4 : (M >= 2 ? 2 : 1));
-  return ((N + I4_BN - 1) / I4_BN) * ((M + mt - 1) / mt);
-}
-
-int vgqa_int4_matmul(const void* x, const void* packed, const float* scale, void* y,
-                     float* partial, unsigned* arrivals, int M, int K, int N, int n_g, int kch,
-                     void* stream) {
-  if (M < 1 || K < 2 || K % 2 || N < 1 || n_g < 2 || n_g % 2 || (K / 2) % (n_g / 2))
+// y [M, N] bf16 = x [M, K] bf16 @ dequant4(packed [K/2, N], scale [n_g, N]),
+// on the launch plan (nt, wk, kg) of ops/kernels/int4_matmul.py:_plan: a
+// grid of ceil(N / (16 nt)) strips x chunks = (n_g / 2) / (wk kg) blocks,
+// each strip's chunks one cluster (at most 8). x, packed and scale are
+// contiguous and 16-byte aligned.
+int vgqa_int4_matmul(const void* x, const void* packed, const float* scale, void* y, int M,
+                     int K, int N, int n_g, int nt, int wk, int kg, void* stream) {
+  if (M < 1 || M > 64 || K < 2 || K % 2 || N < 1 || n_g < 2 || n_g % 2 || (K / 2) % (n_g / 2))
     return (int)cudaErrorInvalidValue;
-  const int g = (K / 2) / (n_g / 2);
-  if (kch < 1 || kch > I4_MAX_SPAN || g % kch) return (int)cudaErrorInvalidValue;
-  int groups = 1;                                 // K slices per block: 4, 2 or 1
-  while (groups < I4_MAX_GROUPS && ((K / 2) / kch) % (2 * groups) == 0 &&
-         2 * groups * kch <= I4_MAX_SPAN)
-    groups *= 2;
-  const int mt = M >= 8 ? 8 : (M >= 4 ? 4 : (M >= 2 ? 2 : 1));
-  const int chunks = (K / 2) / (kch * groups);
-  if (chunks > 65535 || (M + mt - 1) / mt > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + I4_BN - 1) / I4_BN, chunks, (M + mt - 1) / mt);
+  const int n2 = n_g / 2, g = (K / 2) / n2;
+  const int mt = M <= 8 ? 1 : (M <= 16 ? 2 : (M <= 32 ? 4 : 8));
+  if (!(nt == 1 || nt == 2 || nt == 4) || nt * mt > 8 ||
+      !(wk == 1 || wk == 2 || wk == 4) || kg < 1 || n2 % (wk * kg) || n2 / (wk * kg) > 8)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + 16 * nt - 1) / (16 * nt), n2 / (wk * kg));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* xb = (const bf16*)x;
   const int8_t* pb = (const int8_t*)packed;
   bf16* yb = (bf16*)y;
-  switch (mt) {
-    case 8: launch_mt<8>(grid, groups, st, xb, pb, scale, partial, arrivals, yb, M, K, N, g, kch); break;
-    case 4: launch_mt<4>(grid, groups, st, xb, pb, scale, partial, arrivals, yb, M, K, N, g, kch); break;
-    case 2: launch_mt<2>(grid, groups, st, xb, pb, scale, partial, arrivals, yb, M, K, N, g, kch); break;
-    default: launch_mt<1>(grid, groups, st, xb, pb, scale, partial, arrivals, yb, M, K, N, g, kch); break;
-  }
-  return (int)cudaGetLastError();
+#define I4_CASE(NT_, MT_) \
+  if (nt == NT_ && mt == MT_) return launch<NT_, MT_>(grid, wk, st, xb, pb, scale, yb, M, K, N, g, kg);
+  I4_CASE(4, 1) I4_CASE(2, 1) I4_CASE(1, 1)
+  I4_CASE(4, 2) I4_CASE(2, 2) I4_CASE(1, 2)
+  I4_CASE(2, 4) I4_CASE(1, 4)
+  I4_CASE(1, 8)
+#undef I4_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -45,8 +45,7 @@ _SIGNATURES = {
                        _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vgqa_flash_gqa_causal": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
-    "vgqa_int4_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vgqa_int4_matmul_tiles": [_I, _I],
+    "vgqa_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

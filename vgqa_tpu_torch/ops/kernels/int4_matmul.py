@@ -8,35 +8,39 @@ Replaces ``vgqa_tpu/ops/pallas/int4_matmul.py:int4_matmul`` (Pallas
 in the split-half pack of ``qa/quant.quantize_kernel_int4``: packed row k
 holds row k in its low nibble and row K/2 + k in its high nibble; group j
 of g = K / n_g rows has the f32 scale row ``scale[j]``, applied to that
-group's partial sum (the low half owns groups [0, n_g/2)). Products take
-the input dtype's values with f32 accumulation, as the Pallas kernel's
-per-group dots do. Its callers are the seven projections of every LLM
-layer of an int4 tree at decode (M = batch rows <= 64), routed by
+group's f32 partial sum (the low half owns groups [0, n_g/2)); the sum is
+rounded to x's dtype once. Its callers are the seven projections of every
+LLM layer of an int4 tree at decode (M = batch rows <= 64), routed by
 :func:`int4_matmul_kernel_applicable`, a copy of the JAX gate, so that both
 packages send the same products to the kernel: 224 launches per decode
 forward of the 32-layer model. Prefill (M = 1024) stays on the plain
 half-matmul form (``qa/quant.quant_matmul_int4``).
 
-On the H100 (``csrc/int4_matmul.cu``): at M = 1 or 2 the product is two
-multiply-adds per packed byte, so the bound is the packed bytes, ~109 MB
-per layer (1.1 ms per decode token for 32 layers at 3.35 TB/s) with the
-scales. The kernel reads each packed byte once, coalesced (4 columns per
-thread, 512 per 128 threads), unpacks the nibbles in registers (no
-dequantized weight reaches memory), splits the contraction in slices of
-``kch`` packed rows (a divisor of g) so that enough loads are in flight,
-adds up to 4 slices' scaled sums inside a block, and the last block of
-each output tile to arrive (an atomic counter per tile) adds the blocks'
-f32 partials in a fixed order: one launch per product, the same result
-whatever order the blocks ran in. The
-counters are a zeroed buffer kept per (device, stream); each launch leaves
-it zero again. The Pallas wrapper pads M to 8 rows; the port takes any M.
+On the H100 (``csrc/int4_matmul.cu``, whose header has the details): at
+decode a packed byte feeds four multiply-adds, so the bound is the packed
+bytes and the scales (~109 MB per layer, 1.1 ms per 32-layer token at
+3.35 TB/s). The kernel contracts on the tensor cores (``mma.sync``
+m16n8k16, the weight as the A operand, x's rows as B), turns nibbles into
+bf16 with bit operations and one subtraction (no integer-to-float
+conversions), streams each warp's steps of 16 packed rows (gcd(g, 16) for
+groups of fewer rows), x and the group scales through a 4-stage
+shared-memory ring of 16-byte ``cp.async`` copies, and keeps one f32
+partial per group and nibble half. Each packed byte is read once for any
+M <= 64. :func:`_plan` chooses, once per ``(M, K, N, n_g)``, the strip
+width (16 * nt columns), the warps per block (wk) and the groups per warp
+(kg) so that every projection shape fills the 132 SMs. The blocks that split one strip's contraction form a
+thread-block cluster and add their f32 sums in a fixed order through
+distributed shared memory: no scratch in device memory, no counters.
 
-``int4_matmul`` launches the kernel for CUDA tensors (x bf16) and runs
-:func:`int4_matmul_reference` for CPU tensors; anything else raises.
-``int4_matmul.launches`` counts the launches.
+``int4_matmul`` launches the kernel for CUDA tensors (x bf16, any group
+size g that splits the halves) and runs :func:`int4_matmul_reference` for
+CPU tensors; anything else raises. ``int4_matmul.launches`` counts the launches.
 """
 
 from __future__ import annotations
+
+import functools
+from collections import namedtuple
 
 import torch
 
@@ -86,63 +90,92 @@ def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
     return y.reshape(*lead, N).to(x.dtype)
 
 
-def _chunk_rows(m: int, g: int) -> int:
-    """Packed rows per slice: whole groups when M is large (fewer partials
-    to add; the gate keeps g <= 512), 16-row slices of a group at decode
-    (more blocks in flight: at M = 1 the fastest of 8, 16, 32, 64 and 128
-    on the H100)."""
-    if m > 8:
-        return g
-    return max(d for d in range(1, min(g, 16) + 1) if g % d == 0)
+Plan = namedtuple("Plan", "nt mt wk kg strips chunks")
+
+# The constants below were chosen by timing every plan the kernel takes at
+# the four projection shapes, M = 1 and 64 (``chip_k6.py``; PERF.md §6).
+_MAX_NT = 4          # strips of at most 64 columns (the kernel's widest)
+_MIN_BLOCKS = 128    # narrow the strips until the groups give about one block per SM
+_MAX_BLOCKS = 528    # M <= 8: more groups per warp while more blocks than fit at once (4 per SM)
+_MAX_CLUSTER = 8     # the portable thread-block cluster size
 
 
-_ARRIVALS = {}       # (device, stream) -> zeroed uint32 tile counters
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, k: int, n: int, n_g: int) -> Plan:
+    """The launch plan of one product shape (pure Python, cached).
+
+    ``mt`` m-tiles of 8 rows hold all of x's rows; a warp owns a strip of
+    ``16 * nt`` columns (``nt * mt <= 8`` bounds its f32 fragments); a block
+    is ``wk`` warps on one strip, warp w taking the low-half groups
+    ``[(chunk * wk + w) * kg, + kg)``; the grid is ``strips x chunks``, and
+    the ``chunks`` blocks of a strip form one cluster (at most 8) that adds
+    their sums."""
+    mt = 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
+    n2 = n_g // 2
+    wk = 4 if n2 % 4 == 0 else 2 if n2 % 2 == 0 else 1
+    runs = n2 // wk                     # chunks at kg = 1
+
+    def strips(nt):
+        return -(-n // (16 * nt))
+
+    nt = min(_MAX_NT, 8 // mt)
+    while nt > 1 and strips(nt) * runs < _MIN_BLOCKS:
+        nt //= 2
+    kgs = [d for d in range(1, runs + 1) if runs % d == 0 and runs // d <= _MAX_CLUSTER]
+    # past 8 rows a warp holds twice the fragments and fewer blocks fit: the
+    # fewest blocks from about one per SM up
+    cap = _MAX_BLOCKS if mt == 1 else _MIN_BLOCKS
+    fits = [d for d in kgs if strips(nt) * (runs // d) <= cap]
+    kg = min(fits) if fits else max(kgs)
+    return Plan(nt, mt, wk, kg, strips(nt), runs // kg)
 
 
-def _arrivals(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    key = (device, stream)
-    buf = _ARRIVALS.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
-        _ARRIVALS[key] = buf
-    return buf
+@functools.lru_cache(maxsize=None)
+def _checked_plan(m: int, k: int, half: int, n: int, n_g: int, scale_cols: int) -> Plan:
+    """:func:`_plan` for shapes the kernel takes; raises ValueError otherwise."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"int4_matmul takes 1 to {MAX_M} rows, not {m}")
+    if k != 2 * half or scale_cols != n or n_g < 2 or n_g % 2 or half % (n_g // 2):
+        raise ValueError(f"int4_matmul: K {k}, packed [{half}, {n}], scale [{n_g}, "
+                         f"{scale_cols}]")
+    return _plan(m, k, n, n_g)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ dequant4(packed [K/2, N], scale [n_g, N]) -> [..., N] in
     x's dtype. Leading axes fold into M; callers check
-    :func:`int4_matmul_kernel_applicable` first, as in the JAX package."""
-    if x.device.type == "cpu":
-        return int4_matmul_reference(x, packed, scale)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int4_matmul runs on cpu or cuda, not {x.device}")
-    *lead, K = x.shape
-    half, N = packed.shape
-    n_g = scale.shape[0]
+    :func:`int4_matmul_kernel_applicable` first, as in the JAX package.
+    The launch path is kept short: decode calls it 224 times per token."""
+    dev = x.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return int4_matmul_reference(x, packed, scale)
+        raise RuntimeError(f"int4_matmul runs on cpu or cuda, not {dev}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"int4_matmul kernel takes bfloat16 activations, not {x.dtype}")
     if packed.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"int4_matmul takes int8 packed and f32 scales, not "
                         f"{packed.dtype} / {scale.dtype}")
-    if (K != 2 * half or scale.shape[1] != N or n_g % 2 or half % (n_g // 2)
-            or packed.device != x.device or scale.device != x.device):
-        raise ValueError(f"x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
-                         f"scale {tuple(scale.shape)}")
-    x2 = x.reshape(-1, K).contiguous()
-    packed, scale = packed.contiguous(), scale.contiguous()
-    M = x2.shape[0]
-    g = half // (n_g // 2)
-    kch = _chunk_rows(M, g)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    partial = torch.empty((half // kch, M, N), dtype=torch.float32, device=x.device)
-    lib = build.load_library()
-    stream = build.stream_handle(x.device)
-    arrivals = _arrivals(x.device, stream, lib.vgqa_int4_matmul_tiles(M, N))
-    build.check(lib.vgqa_int4_matmul(
-        x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), partial.data_ptr(),
-        arrivals.data_ptr(), M, K, N, n_g, kch, stream), "int4_matmul")
+    K = x.shape[-1]
+    M = x.numel() // K
+    half, N = packed.shape
+    plan = _checked_plan(M, K, half, N, *scale.shape)
+    if packed.device != dev or scale.device != dev:
+        raise ValueError(f"int4_matmul: x on {dev}, packed on {packed.device}, "
+                         f"scale on {scale.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    if not packed.is_contiguous() or packed.data_ptr() % 16:
+        packed = packed.clone(memory_format=torch.contiguous_format)
+    if not scale.is_contiguous() or scale.data_ptr() % 16:
+        scale = scale.clone(memory_format=torch.contiguous_format)
+    y = torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)   # the handle, as an int
+    build.check(build.load_library().vgqa_int4_matmul(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
+        scale.shape[0], plan.nt, plan.wk, plan.kg, stream), "int4_matmul")
     int4_matmul.launches += 1
-    return y.reshape(*lead, N)
+    return y
 
 
 int4_matmul.launches = 0

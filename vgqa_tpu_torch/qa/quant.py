@@ -47,9 +47,26 @@ def quantize_kernel(kernel: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"kernel_q": q, "scale": scale}
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] of one dtype, accumulated and returned in f32
+    (JAX's ``preferred_element_type=jnp.float32``), so that the caller
+    rounds to the input dtype once. On the card a bf16 / f16 product is one
+    cuBLAS call with an f32 output (``aten::mm.dtype``); on the CPU, which
+    lacks that operator, the operands go to f32 first: products of bf16
+    values are exact in f32, so the sum is the same f32 accumulation."""
+    *lead, K = x.shape
+    x2 = x.reshape(-1, K)
+    if x2.is_cuda and x2.dtype != torch.float32:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*lead, w.shape[1])
+
+
 def quant_matmul(x: torch.Tensor, qparams: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """x [..., in] @ dequant(kernel) -> [..., out] (weight-only int8)."""
-    y = torch.matmul(x, qparams["kernel_q"].to(x.dtype)).float()
+    """x [..., in] @ dequant(kernel) -> [..., out] (weight-only int8): the
+    f32 product, scaled, rounded to x's dtype once."""
+    y = matmul_f32(x, qparams["kernel_q"].to(x.dtype))
     return (y * qparams["scale"]).to(x.dtype)
 
 
@@ -139,13 +156,13 @@ def quant_matmul_int4(x: torch.Tensor, qparams: Dict[str, torch.Tensor],
         return int4_matmul(x, packed, scale)
     if n_g % 2 or half % g:
         w = dequantize_kernel_int4(qparams, dtype=x.dtype)
-        return torch.matmul(x, w).to(x.dtype)
+        return matmul_f32(x, w).to(x.dtype)
     n2 = n_g // 2
     lo, hi = unpack_int4(packed)
 
     def _half(q, s, xs):
         w = q.to(x.dtype).reshape(n2, g, out) * s[:, None, :].to(x.dtype)
-        return torch.matmul(xs, w.reshape(half, out)).float()
+        return matmul_f32(xs, w.reshape(half, out))
 
     y = _half(lo, scale[:n2], x[..., :half]) + _half(hi, scale[n2:], x[..., half:])
     return y.to(x.dtype)
