@@ -18,7 +18,10 @@
    shapes, also held against K1 on the same canvas (the same chain with
    identity row maps); K3 flash_mha_train forward (out, lse) and backward
    (dq, dk, dv) at [512, 124, 32] and [512, 418, 32], dropout rates 0 and
-   0.1 (both sides draw the same keep mask).
+   0.1 (both sides draw the same keep mask): also the forward's keep bits
+   against the plain mask packed, two backward runs bit-equal, the device
+   kernels per call (profiler), the exponential floor beside the bound, and
+   SDPA's forward and backward timed apart at the row's dropout rate.
 4. Serves the full-width default grounding model (ResNet-101, Video Swin-T,
    RoBERTa-base, 6-layer encoder, 6+6 decoders) with random weights from
    seed 0 in bf16: one warm-up request, then three pipelined 128-frame
@@ -39,7 +42,11 @@
    forward+backward and the optimizer+EMA halves timed alone; one step
    under torch.profiler (device busy share); then the loss and the global
    gradient norm of one step with the kernel routes on against the plain
-   routes, from the same state with every dropout rate 0. Then two bf16
+   routes, from the same state with every dropout rate 0, and K3's device
+   time in the profiled step. Then the same checked steps at the production
+   resolution, 64 frames x 420 px (K3 at [512, 418, 32], rate 0.1), with
+   three profiled steps (K3's device time, the median step; busy share).
+   Then two bf16
    steps with a trainable tower (MODEL.VIDEO_SWIN.FREEZE False, the module
    route under autograd): ms/step, peak memory, finite loss, the Swin
    parameters changed, and K1 / K1' launched 0 times.
@@ -89,6 +96,10 @@ REL_TOL = 3e-2      # bf16 kernel vs f32 plain version, relative to max |ref|
 WARMUP, REPS = 2, 5
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+# H100 SXM exponentials per second: 16 per SM per clock (the SFUs) x 132 SMs
+# x 1.98 GHz boost; not part of the bound (its definition counts tensor-core
+# operations and bytes), printed beside it for K3
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def card_line() -> str:
@@ -279,14 +290,39 @@ def check_swin_fused(dev, g, cases, batch):
     return rows
 
 
+K3_NAMES = ("attn_fwd_kernel<32", "flash_bwd_kernel")   # K3's forward and backward
+
+
+def device_kernels(fn, calls=10):
+    """Under the profiler, ``calls`` calls of ``fn``: (device kernels per
+    call, K3's kernels per call, K3's device ms per call, device ms of all
+    kernels per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    k3 = [e for e in events if any(k in e.name for k in K3_NAMES)]
+
+    def ms(es):
+        return sum(e.time_range.end - e.time_range.start for e in es) / calls / 1e3
+
+    return len(events) / calls, len(k3) / calls, ms(k3), ms(events)
+
+
 def check_flash_train(dev, g):
     from vgqa_tpu_torch.ops.kernels.flash_train import (
         flash_train_bwd, flash_train_bwd_reference, flash_train_fwd,
-        flash_train_fwd_reference, fold_heads)
+        flash_train_fwd_reference, fold_heads, keep_mask, pack_keep_bits)
 
     rows = []
     W, H, D = 64, 8, 32                    # 64 frames x 8 heads = 512 rows, dh 32
     scale = D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for L in (124, 418):                   # 224 px and 420 px encoder rows
         q, k, v, do = (torch.randn(W, L, H * D, generator=g, device=dev).bfloat16()
                        for _ in range(4))
@@ -296,58 +332,92 @@ def check_flash_train(dev, g):
         maskf = mask.repeat_interleave(H, dim=0)
         for rate in (0.0, 0.1):
             args = (mask, 12345, rate, scale, H)
-            out, lse = flash_train_fwd(q, k, v, *args)
-            grads = flash_train_bwd(q, k, v, out, do, lse, *args)
+            out, lse, bits = flash_train_fwd(q, k, v, *args)
+            bwd_args = (q, k, v, out, do, lse, bits, mask, rate, scale, H)
+            grads = flash_train_bwd(*bwd_args)
+            again = flash_train_bwd(*bwd_args)
             r_out, r_lse = flash_train_fwd_reference(*f32[:3], maskf, 12345, rate, scale)
             r_grads = flash_train_bwd_reference(*f32[:3], r_out, f32[3], r_lse, maskf, 12345,
                                                 rate, scale)
-            torch.cuda.synchronize()
             errs = {"out": rel_err(fold_heads(out, H), r_out)}
             errs.update({n: rel_err(fold_heads(a, H), b)
                          for n, a, b in zip(("dq", "dk", "dv"), grads, r_grads)})
             lse_err = float((lse - r_lse).abs().max())
-            del grads, r_grads, r_out, r_lse
+            bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+            bits_equal = None
+            if rate > 0:
+                bits_equal = bool(torch.equal(bits, pack_keep_bits(
+                    keep_mask(12345, W * H, L, L, rate, dev))))
+            del grads, again, r_grads, r_out, r_lse
+            fwd_n, fwd_k3, fwd_dev, _ = device_kernels(lambda: flash_train_fwd(q, k, v, *args))
+            bwd_n, bwd_k3, bwd_dev, _ = device_kernels(lambda: flash_train_bwd(*bwd_args))
+            launches = {"fwd": (fwd_n, fwd_k3), "bwd": (bwd_n, bwd_k3)}
             fwd_ms = cuda_ms(lambda: flash_train_fwd(q, k, v, *args))
-            bwd_ms = cuda_ms(lambda: flash_train_bwd(q, k, v, out, do, lse, *args))
+            bwd_ms = cuda_ms(lambda: flash_train_bwd(*bwd_args))
 
             def plain():
                 o, s = flash_train_fwd_reference(*f32[:3], maskf, 12345, rate, scale)
-                return flash_train_bwd_reference(*f32[:3], o, f32[3], s, maskf, 12345,
-                                                 rate, scale)
+                flash_train_bwd_reference(*f32[:3], o, f32[3], s, maskf, 12345,
+                                          rate, scale)
 
             plain_ms = cuda_ms(plain)
+            # SDPA (bool key mask), the port never calls it: library_ms is its
+            # forward+backward by CUDA events at rate 0; library_{fwd,bwd}_device_ms
+            # its forward and backward apart by device time at this row's rate
+            # (at 0.1 its own dropout)
+            qh, kh, vh = (t.reshape(W, L, H, D).transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            doh = do.reshape(W, L, H, D).transpose(1, 2)
+            am = mask[:, None, None, :]
             lib_ms = None
             if rate == 0.0:
-                qh, kh, vh = (t.reshape(W, L, H, D).transpose(1, 2).detach().requires_grad_()
-                              for t in (q, k, v))
-                doh = do.reshape(W, L, H, D).transpose(1, 2)
-                am = mask[:, None, None, :]
-
                 def library():
-                    o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
-                                                                         attn_mask=am)
+                    o = sdpa(qh, kh, vh, attn_mask=am)
                     torch.autograd.grad(o, (qh, kh, vh), doh)
 
                 lib_ms = cuda_ms(library)
+            lib_fwd_dev = device_kernels(lambda: sdpa(qh, kh, vh, attn_mask=am,
+                                                      dropout_p=rate))[3]
+            o_lib = sdpa(qh, kh, vh, attn_mask=am, dropout_p=rate)
+            lib_bwd_dev = device_kernels(lambda: torch.autograd.grad(
+                o_lib, (qh, kh, vh), doh, retain_graph=True))[3]
+            del o_lib, qh, kh, vh
             B = W * H
             elems = B * L * D
             f_ms, f_by = bound(4.0 * B * L * L * D, 4 * elems * 2 + B * L * 4 + W * L)
             b_ms, b_by = bound(10.0 * B * L * L * D, 8 * elems * 2 + B * L * 4 + W * L)
             row = {"L": L, "rate": rate, "max_rel_err": max(e[0] for e in errs.values()),
                    "max_abs_err": max(e[1] for e in errs.values()), "lse_abs_err": lse_err,
-                   "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "fwd_bound_ms": f_ms, "bwd_bound_ms": b_ms,
-                   "bound_by": "bytes" if "bytes" in (f_by, b_by) else "operations"}
+                   "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_device_ms": fwd_dev,
+                   "bwd_device_ms": bwd_dev, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_fwd_device_ms": lib_fwd_dev, "library_bwd_device_ms": lib_bwd_dev,
+                   "fwd_bound_ms": f_ms, "bwd_bound_ms": b_ms,
+                   "exp_floor_ms": 1e3 * B * L * L / EXP_PER_S,
+                   "bound_by": "bytes" if "bytes" in (f_by, b_by) else "operations",
+                   "launches_per_call": launches, "bwd_bit_equal": bit_equal,
+                   "keep_bits_equal": bits_equal}
             rows.append(row)
             print(f"K3 flash_mha_train [512, {L}, 32] rate={rate}: rel_err "
                   + " ".join(f"{n} {e[0]:.3e}" for n, e in errs.items())
-                  + f"  lse abs {lse_err:.2e}  fwd {fwd_ms:.3f} ms  bwd {bwd_ms:.3f} ms  "
-                  f"plain(f32) fwd+bwd {plain_ms:.3f} ms  sdpa fwd+bwd "
+                  + f"  lse abs {lse_err:.2e}  fwd {fwd_ms:.4f} ms  bwd {bwd_ms:.4f} ms (CUDA "
+                  f"events over back-to-back calls; device {fwd_dev:.4f} + {bwd_dev:.4f} ms "
+                  f"per call, profiler)  plain(f32) fwd+bwd {plain_ms:.3f} ms  sdpa fwd+bwd "
                   + ("-" if lib_ms is None else f"{lib_ms:.3f} ms")
-                  + f"  bound fwd {f_ms:.4f} ({f_by}) bwd {b_ms:.4f} ms ({b_by})")
+                  + f" (events), device fwd {lib_fwd_dev:.4f} + bwd {lib_bwd_dev:.4f} ms at "
+                  f"dropout_p={rate}  bound fwd {f_ms:.4f} ({f_by}) bwd "
+                  f"{b_ms:.4f} ms ({b_by}), exp floor {row['exp_floor_ms']:.4f} ms per pass; "
+                  f"device kernels per call (all, K3) fwd {launches['fwd']} bwd "
+                  f"{launches['bwd']}; bwd bit-equal {bit_equal}; keep bits = plain mask "
+                  f"packed: {bits_equal}")
             if not (row["max_rel_err"] < REL_TOL and lse_err < 1e-2):
                 raise AssertionError(f"flash_mha_train L={L} rate={rate}: {errs}, lse {lse_err}")
-            del out, lse
+            if not bit_equal or bits_equal is False:
+                raise AssertionError(f"flash_mha_train L={L} rate={rate}: backward bit-equal "
+                                     f"{bit_equal}, keep bits equal {bits_equal}")
+            if launches["fwd"][1] != 1 or launches["bwd"][1] != 1:
+                raise AssertionError(f"flash_mha_train L={L} rate={rate}: K3 kernels per "
+                                     f"call {launches}, expected one forward and one backward")
+            del out, lse, bits
         del q, k, v, do, f32
         torch.cuda.empty_cache()
     return rows
@@ -769,7 +839,8 @@ def timed(fn, reps=3):
 
 def profile_step(step):
     """Run ``step()`` once under torch.profiler; returns (wall ms, device
-    busy ms as the union of kernel intervals, top kernels by time)."""
+    busy ms as the union of kernel intervals, kernel launches, (name, device
+    us) of every kernel name by time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -789,16 +860,22 @@ def profile_step(step):
     for e in prof.events():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return wall, busy / 1e3, len(spans), top
 
 
-def train(dev, card):
+def train_steps(dev, card, res: int):
+    """The full-width default model with TPU.TRAIN_DTYPE bfloat16 at 64
+    frames x ``res`` px, V = 1, random weights from seed 0, on the synthetic
+    batch: one warm-up step, then three timed steps (CUDA events, peak
+    memory) with the launch counts set to 0 just before and read just after;
+    checks a finite loss, frozen parameters bit-unchanged, trainable ones
+    changed, the EMA moved, and K1 x12, K3 forward x6 and backward x6
+    launches per step."""
     from vgqa_tpu_torch.data.synthetic_batch import synthetic_batch
-    from vgqa_tpu_torch.training.optimizer import update_ema
     from vgqa_tpu_torch.training.trainer import Trainer, batch_to
 
-    cfg = full_cfg(224, **{"TPU.TRAIN_DTYPE": "bfloat16"})
+    cfg = full_cfg(res, **{"TPU.TRAIN_DTYPE": "bfloat16"})
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev, seed=0)
     trainer.setup(max_iter=1000)
@@ -816,7 +893,8 @@ def train(dev, card):
     t0 = time.perf_counter()
     m = step_fn(state, *args, seed=0)
     first_loss = float(m["loss"])
-    print(f"warm-up train step: {time.perf_counter() - t0:.3f} s (loss {first_loss:.4f})")
+    print(f"warm-up train step 64f@{res}: {time.perf_counter() - t0:.3f} s "
+          f"(loss {first_loss:.4f})")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     ema_before = {n: e.clone() for n, e in state.ema.items()}
 
@@ -833,7 +911,7 @@ def train(dev, card):
     ms_step = start.elapsed_time(end) / 3
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x["loss"]) for x in metrics]
-    print(f"train step 64f@224 bf16 V=1: {ms_step:.1f} ms/step (CUDA events, 3 steps; "
+    print(f"train step 64f@{res} bf16 V=1: {ms_step:.1f} ms/step (CUDA events, 3 steps; "
           f"host {1e3 * host_s / 3:.1f} ms/step), peak memory {peak_gb:.2f} GiB  [{card}]")
     print(f"losses {losses}, grad norms {[round(float(x['grad_norm']), 4) for x in metrics]}")
     print("loss terms of the last step: " + json.dumps(
@@ -857,6 +935,23 @@ def train(dev, card):
         raise AssertionError(f"frozen changed {frozen_changed[:5]}, trained {len(trained)}, "
                              f"EMA moved {ema_moved}")
     del before, ema_before
+    return {"cfg": cfg, "trainer": trainer, "args": args, "ms_step": ms_step,
+            "peak_gb": peak_gb, "launches": launches, "losses": losses}
+
+
+def k3_device_ms(top):
+    """K3's device ms (forward, backward) among a profiled step's kernels."""
+    return tuple(sum(us for name, us in top if k in name) / 1e3 for k in K3_NAMES)
+
+
+def train(dev, card):
+    from vgqa_tpu_torch.training.optimizer import update_ema
+
+    run = train_steps(dev, card, 224)
+    cfg, args, launches, ms_step, peak_gb = (run[k] for k in
+                                             ("cfg", "args", "launches", "ms_step", "peak_gb"))
+    state, step_fn = run["trainer"].state, run["trainer"].step_fn
+    model, labels = state.model, state.optimizer.labels
 
     # the step's two halves alone: forward + loss + backward, then clip +
     # grouped AdamW + EMA (on the gradients the first half left)
@@ -868,9 +963,11 @@ def train(dev, card):
           f"clip+AdamW+EMA {opt_ms:.1f} ms (host {opt_host:.1f} ms)  [{card}]")
 
     wall, busy, n_kernels, top = profile_step(lambda: step_fn(state, *args, seed=0))
+    k3_fwd, k3_bwd = k3_device_ms(top)
     print(f"profiled train step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-          f"(idle share {1 - busy / wall:.3f}), {n_kernels} kernel launches")
-    for name, us in top:
+          f"(idle share {1 - busy / wall:.3f}), {n_kernels} kernel launches; K3 device "
+          f"{k3_fwd:.3f} + {k3_bwd:.3f} ms (fwd + bwd, 6 calls each)")
+    for name, us in top[:12]:
         print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
 
     # ---- kernel routes vs plain routes, same state, every dropout rate 0 ----
@@ -879,6 +976,7 @@ def train(dev, card):
     for mod in model.modules():
         if isinstance(getattr(mod, "dropout", None), float):
             mod.dropout = 0.0          # K3 at rate 0, no mask on the einsum route
+    rng_dropout = DropoutRng.dropout
     DropoutRng.dropout = lambda self, x, rate: x     # the fixed-rate dropouts too
     res = {}
     for on in (True, False):
@@ -888,6 +986,7 @@ def train(dev, card):
                  if labels[n] != "frozen" and p.grad is not None]
         res[on] = (float(total), float(torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))))
+    DropoutRng.dropout = rng_dropout
     set_kernel_routes(model, True)
     d_loss = abs(res[True][0] - res[False][0]) / abs(res[False][0])
     d_norm = abs(res[True][1] - res[False][1]) / res[False][1]
@@ -899,7 +998,32 @@ def train(dev, card):
     # gradient) moves the loss or the gradient norm by far more
     if not (d_loss < 2e-2 and d_norm < 5e-2):
         raise AssertionError("kernel and plain routes disagree on the train step")
-    return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches}
+    return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches,
+            "k3_device_ms": k3_fwd + k3_bwd}
+
+
+def train_420(dev, card):
+    """The production resolution (configs/grounding_vidstg.yaml trains at
+    INPUT.RESOLUTION 420: K3 at [512, 418, 32], rate 0.1): the checked
+    steps of :func:`train_steps`, then three steps under the profiler for
+    K3's device time and the device busy share."""
+    run = train_steps(dev, card, 420)
+    state, step_fn, args = run["trainer"].state, run["trainer"].step_fn, run["args"]
+    # three profiled steps; the one with K3's median device time is reported
+    steps = [profile_step(lambda: step_fn(state, *args, seed=0)) for _ in range(3)]
+    k3 = [k3_device_ms(top) for _, _, _, top in steps]
+    mid = sorted(range(3), key=lambda i: sum(k3[i]))[1]
+    wall, busy, n_kernels, top = steps[mid]
+    k3_fwd, k3_bwd = k3[mid]
+    print(f"profiled train step 64f@420 (median of 3 by K3 time): wall {wall:.1f} ms, device "
+          f"busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}), {n_kernels} kernel "
+          f"launches; K3 device {k3_fwd:.3f} + {k3_bwd:.3f} ms (fwd + bwd, 6 calls each; the "
+          f"3 steps: {[round(sum(x), 3) for x in k3]})  [{card}]")
+    for name, us in top[:12]:
+        print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
+    return {"ms_step": run["ms_step"], "peak_gb": run["peak_gb"], "launches": run["launches"],
+            "k3_device_ms": k3_fwd + k3_bwd, "k3_fwd_ms": k3_fwd, "k3_bwd_ms": k3_bwd,
+            "busy_ms": busy, "wall_ms": wall}
 
 
 def swin_tower_routes(dev, card):
@@ -1225,6 +1349,9 @@ def main() -> int:
     tr = train(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    tr420 = train_420(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     tr_swin = train_trainable(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1237,14 +1364,19 @@ def main() -> int:
     k1_by = max(k1_rows, key=lambda r: r["bound_ms"] * r["per_fwd"])["bound_by"]
     k2 = k2_rows[0]
     k3 = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.1)
-    k3_lib = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.0)["library_ms"]
+    k3_lib = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.0)
+    k3_420 = next(r for r in k3_rows if r["L"] == 418 and r["rate"] == 0.1)
+    k3_launches = {d: tr["launches"][f"flash_mha_train.{d}"]
+                   + tr420["launches"][f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
     table = {"kernels": [
         {"name": "swin_block_canvas", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
-         "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"],
+         "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"]
+         + tr420["launches"]["swin_block_canvas"],
          "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
-                              "train": tr["launches"]["swin_block_canvas"], "qa": 0},
+                              "train": tr["launches"]["swin_block_canvas"],
+                              "train_420": tr420["launches"]["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None,
@@ -1274,19 +1406,28 @@ def main() -> int:
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"]},
         {"name": "flash_mha_train", "route": "cuda",
-         "source": "vgqa_tpu_torch/csrc/flash_train.cu",
+         "source": "vgqa_tpu_torch/csrc/flash_attention.cu (forward), "
+                   "vgqa_tpu_torch/csrc/flash_train.cu (backward)",
          "replaces": "vgqa_tpu/ops/pallas/flash_train.py:223",
-         "launches": tr["launches"]["flash_mha_train.fwd"] + tr["launches"]["flash_mha_train.bwd"],
+         "launches": k3_launches["fwd"] + k3_launches["bwd"],
          "launches_by_path": {"serve": 0, "qa": 0,
                               "train": tr["launches"]["flash_mha_train.fwd"]
-                              + tr["launches"]["flash_mha_train.bwd"]},
-         "launches_by_direction": {"fwd": tr["launches"]["flash_mha_train.fwd"],
-                                   "bwd": tr["launches"]["flash_mha_train.bwd"]},
+                              + tr["launches"]["flash_mha_train.bwd"],
+                              "train_420": tr420["launches"]["flash_mha_train.fwd"]
+                              + tr420["launches"]["flash_mha_train.bwd"]},
+         "launches_by_direction": k3_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          "ms": 6 * (k3["fwd_ms"] + k3["bwd_ms"]), "plain_ms": 6 * k3["plain_ms"],
          "bound_ms": 6 * (k3["fwd_bound_ms"] + k3["bwd_bound_ms"]), "bound_by": k3["bound_by"],
-         "library_ms": 6 * k3_lib,
-         "fwd_ms": k3["fwd_ms"], "bwd_ms": k3["bwd_ms"]},
+         "library_ms": 6 * k3_lib["library_ms"],
+         "fwd_ms": k3["fwd_ms"], "bwd_ms": k3["bwd_ms"],
+         "device_ms": 6 * (k3["fwd_device_ms"] + k3["bwd_device_ms"]),
+         "fwd_device_ms": k3["fwd_device_ms"], "bwd_device_ms": k3["bwd_device_ms"],
+         "library_device_ms": 6 * (k3_lib["library_fwd_device_ms"]
+                                   + k3_lib["library_bwd_device_ms"]),
+         "library_dropout_ms": 6 * (k3["library_fwd_device_ms"] + k3["library_bwd_device_ms"]),
+         "step_420_device_ms": tr420["k3_device_ms"],
+         "step_420_bound_ms": 6 * (k3_420["fwd_bound_ms"] + k3_420["bwd_bound_ms"])},
         qa_row("flash_mha", "vgqa_tpu/ops/pallas/flash_attention.py:79", qa_l,
                k4_rows[:1], qa["per_chat"]["flash_mha"], k4_rows),
         qa_row("flash_gqa_causal", "vgqa_tpu/ops/pallas/flash_attention.py:242", qa_l,
@@ -1300,9 +1441,14 @@ def main() -> int:
           "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124), over one "
           "train step "
           "at 64f@224 for K3 (6 forward + 6 backward calls at [512, 124, 32], rate 0.1; "
-          "library: SDPA fwd+bwd at rate 0); launches over the serving (4 forwards) and "
-          f"training (3 steps) runs; train step {tr['ms_step']:.1f} ms, "
-          f"peak {tr['peak_gb']:.2f} GiB; K1' launches over the tower's blocks route; Swin-T "
+          "library: SDPA fwd+bwd at rate 0; *_device_ms the same by device time (profiler), "
+          "library_dropout_ms SDPA's at dropout_p 0.1; step_420_device_ms K3's device time "
+          "in one profiled 64f@420 step, step_420_bound_ms its bound); launches over "
+          "the serving (4 forwards) and training (3 steps at 224 px, 3 at 420 px) runs; train "
+          f"step {tr['ms_step']:.1f} ms, peak {tr['peak_gb']:.2f} GiB; at 64f@420 "
+          f"{tr420['ms_step']:.1f} ms, peak {tr420['peak_gb']:.2f} GiB, K3 device "
+          f"{tr420['k3_device_ms']:.3f} ms per step; K1' launches over the tower's blocks "
+          "route; Swin-T "
           f"tower ms canvas / blocks / module {tower['canvas']['ms']:.2f} / "
           f"{tower['blocks']['ms']:.2f} / {tower['module']['ms']:.2f}; trainable-tower train "
           f"step {tr_swin['step_ms'][-1]:.1f} ms, peak {tr_swin['peak_gb']:.2f} GiB; "

@@ -28,6 +28,8 @@ from vgqa_tpu_torch.ops.kernels.flash_train import (
     flash_train_fwd,
     flash_train_fwd_reference,
     fold_heads,
+    keep_mask,
+    pack_keep_bits,
 )
 from vgqa_tpu_torch.ops.kernels.int4_matmul import (
     int4_matmul,
@@ -158,11 +160,13 @@ def test_swin_block_fused_kernel_cuda(cuda, shape, heads, shift, padded):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("Lq,Lk", [(124, 124), (418, 418), (70, 130)])
+@pytest.mark.parametrize("Lq,Lk", [(124, 124), (418, 418), (70, 130), (1024, 1024)])
 def test_flash_train_kernel_cuda(cuda, Lq, Lk, rate):
     """K3 forward (out, lse) and backward (dq, dk, dv) against the plain
     version in f32 on the same bf16 inputs; at rate 0.1 both draw the same
-    keep mask, so the comparison is exact up to rounding."""
+    keep mask, so the comparison is exact up to rounding, and the forward's
+    keep bits equal the plain mask packed. A second backward is bit-equal
+    to the first (no atomics, a fixed summation order)."""
     g = torch.Generator(device=cuda).manual_seed(Lq + Lk)
     W, H = 16, 8
     q = torch.randn(W, Lq, H * 32, generator=g, device=cuda).bfloat16()
@@ -172,8 +176,9 @@ def test_flash_train_kernel_cuda(cuda, Lq, Lk, rate):
     mask[:, 0] = True
     args = (mask, 77, rate, 32 ** -0.5, H)
     fwd0, bwd0 = flash_mha_train.fwd_launches, flash_mha_train.bwd_launches
-    out, lse = flash_train_fwd(q, k, v, *args)
-    grads = flash_train_bwd(q, k, v, out, do, lse, *args)
+    out, lse, bits = flash_train_fwd(q, k, v, *args)
+    grads = flash_train_bwd(q, k, v, out, do, lse, bits, mask, rate, 32 ** -0.5, H)
+    again = flash_train_bwd(q, k, v, out, do, lse, bits, mask, rate, 32 ** -0.5, H)
     f32 = [fold_heads(t.float(), H) for t in (q, k, v, do)]
     maskf = mask.repeat_interleave(H, dim=0)
     ref_out, ref_lse = flash_train_fwd_reference(*f32[:3], maskf, 77, rate, 32 ** -0.5)
@@ -182,9 +187,14 @@ def test_flash_train_kernel_cuda(cuda, Lq, Lk, rate):
     torch.cuda.synchronize()
     assert _rel_err(fold_heads(out, H), ref_out) < CUDA_REL
     assert (lse - ref_lse).abs().max().item() < 1e-2
-    for got, want in zip(grads, ref_grads):
+    for got, want, second in zip(grads, ref_grads, again):
         assert _rel_err(fold_heads(got, H), want) < CUDA_REL
-    assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+        assert torch.equal(got, second)
+    if rate > 0:
+        assert torch.equal(bits, pack_keep_bits(keep_mask(77, W * H, Lq, Lk, rate, cuda)))
+    else:
+        assert bits is None
+    assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (fwd0 + 1, bwd0 + 2)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,13 @@
-// Serving attention forward, behind a plain C interface: the port of
+// Attention forward, behind a plain C interface: the port of
 // vgqa_tpu/ops/pallas/flash_attention.py (K4 flash_attention / flash_mha,
-// Pallas _flash_kernel; K5 flash_gqa_causal, Pallas _flash_gqa_causal_kernel).
+// Pallas _flash_kernel; K5 flash_gqa_causal, Pallas _flash_gqa_causal_kernel)
+// and the forward of vgqa_tpu/ops/pallas/flash_train.py (K3
+// flash_mha_train, Pallas _fwd_kernel; its backward is flash_train.cu).
 //
-// One kernel template, attn_fwd_kernel<D, CAUSAL>, instantiated for K4 at
-// D = 64 (non-causal) and K5 at D = 128 (causal): a block of 4 warps owns
-// one (batch row, query head, tile of 64 queries); each warp holds 16 query
+// One kernel template, attn_fwd_kernel<D, MODE>, instantiated for K4 at
+// D = 64 (non-causal, key mask), K5 at D = 128 (causal) and K3 at D = 32
+// (non-causal, key mask, lse and dropout): a block of 4 warps owns one
+// (batch row, query head, tile of 64 queries); each warp holds 16 query
 // rows as mma.sync A fragments, keys and values stream through shared memory
 // in blocks of 64 rows, double-buffered with cp.async (the next block loads
 // while the current one computes), S = q k^T and P V run on the tensor cores
@@ -20,32 +23,53 @@
 //   out[b, h, i, d] likewise.
 // Rows must be 16-byte aligned (the loads move 8 bf16 at a time).
 //
-// K4 (CAUSAL = false): keys whose mask byte is 0 get -1e30 (finite, as in
-// Pallas); keys past Lk do not exist (-inf). A row whose keys are all masked
+// K4 (MODE_K4): keys whose mask byte is 0 get -1e30 (finite, as in Pallas);
+// keys past Lk do not exist (-inf). A row whose keys are all masked
 // therefore averages V over its Lk keys.
-// K5 (CAUSAL = true): query row i sits at position q_offset + i; a key j is
+// K5 (MODE_K5): query row i sits at position q_offset + i; a key j is
 // masked (-1e30) when j > q_offset + i or j >= length, where length is read
 // from device memory (no host sync). Key blocks past the tile's causal
 // frontier, and past length when length >= 1, are never read: with
 // length >= 1 key 0 is valid for every row, so the skipped keys would only
 // have added exact zeros.
+// K3 (MODE_K3): K4's masking on the packed [W, L, H*32] layout, with the
+// logits in base 2 (log2(e) folded into the scale, one ex2 per element),
+// lse = m + log(l) written in natural log to [W*H, Lq], and dropout: the
+// keep decision of (folded row b = w*H + h, query i, key j) is word (j mod 4)
+// of Philox4x32-10 with key (seed + b, 0) and counter (i, j / 4, 0, 0), kept
+// when its top 24 bits are >= thresh. In the accumulator layout the lanes
+// 2u and 2u + 1 of a quad hold the four keys of one group for rows r0 and
+// r1, so each lane draws one call (row r0 or r1) per group and the two
+// exchange their words' keep bits by one shuffle: one call per four
+// elements. The kernel writes the decisions as bits ([W*H, Lq, ceil(Lk/32)]
+// uint32, bit j % 32 of word j / 32, zero past Lk), which the backward
+// reads, so the mask is drawn once per training step. l sums the kept and
+// the dropped probabilities; out = (kept P) V / l / (1 - rate). K4 and K5
+// compute in base e (expf).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
-using bf16 = __nv_bfloat16;
+using namespace vgqa_attn;
 
 namespace {
 
+constexpr int MODE_K4 = 0, MODE_K5 = 1, MODE_K3 = 2;
 constexpr int AWARPS = 4;
 constexpr int AQT = 16 * AWARPS;      // query rows per block
 constexpr int AKB = 64;               // keys per streamed block
 constexpr float A_NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// shared memory: two stages of K and V tiles [64][D + 8] and the key flags
-template <int D>
-constexpr int smem_bytes() { return 2 * 2 * AKB * (D + 8) * 2 + 2 * AKB; }
+constexpr int K3_MAX_LK = 1024;        // K3's keys (supported_seq); its key terms stay resident
+
+// shared memory: two stages of K and V tiles [64][D + 8], then K4's key
+// flags (two stages of 64 bytes) or K3's key terms (a float2 per key of
+// the row, written once)
+template <int D, int MODE>
+constexpr int smem_bytes() {
+  return 2 * 2 * AKB * (D + 8) * 2 + (MODE == MODE_K3 ? K3_MAX_LK * 8 : 2 * AKB);
+}
 
 struct AttnParams {
   const bf16* q; const bf16* k; const bf16* v; bf16* out;
@@ -53,122 +77,49 @@ struct AttnParams {
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
-  const unsigned char* mask;   // K4: [B, Lk], nonzero = attend, or null
+  const unsigned char* mask;   // K4, K3: [B, Lk], nonzero = attend, or null
   const int* length;           // K5: valid keys, on the device
   int group, Lq, Lk, q_offset;
   float scale;
+  // K3 only
+  float* lse;                  // [B*H, Lq]
+  uint32_t* bits;              // [B*H, Lq, ceil(Lk/32)] keep bits, when dropout
+  uint32_t seed, thresh;       // keep iff (word >> 8) >= thresh
+  int dropout;                 // 0: rate 0, nothing drawn
+  float inv_keep;              // 1 / (1 - rate)
 };
 
-__device__ __forceinline__ uint32_t ldp(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pk(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16 row) * b (16x8 col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float qmax(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float qsum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// A fragments (16 rows x D dims) of rows r0/r1 (r1 = r0 + 8)
-template <int D>
-__device__ __forceinline__ void load_q(uint32_t (&a)[D / 16][4], const bf16* base, long long ld,
-                                       int r0, int r1, bool v0, bool v1, int t) {
+// Philox4x32-10 (Random123), counter (c0, c1, 0, 0), key (key, 0)
+__device__ __forceinline__ uint4 philox4(uint32_t key, uint32_t c0, uint32_t c1) {
+  uint32_t c2 = 0u, c3 = 0u, k0 = key, k1 = 0u;
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    a[ks][0] = v0 ? ldp(base + r0 * ld + c) : 0u;
-    a[ks][1] = v1 ? ldp(base + r1 * ld + c) : 0u;
-    a[ks][2] = v0 ? ldp(base + r0 * ld + c + 8) : 0u;
-    a[ks][3] = v1 ? ldp(base + r1 * ld + c + 8) : 0u;
+  for (int r = 0; r < 10; ++r) {
+    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
+    const unsigned long long p0 = (unsigned long long)0xD2511F53u * c0;
+    const unsigned long long p1 = (unsigned long long)0xCD9E8D57u * c2;
+    c0 = (uint32_t)(p1 >> 32) ^ c1 ^ k0;
+    c1 = (uint32_t)p1;
+    c2 = (uint32_t)(p0 >> 32) ^ c3 ^ k1;
+    c3 = (uint32_t)p0;
   }
+  return make_uint4(c0, c1, c2, c3);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
+__device__ __forceinline__ uint32_t keep_nibble(uint4 w, uint32_t thresh) {
+  return (uint32_t)((w.x >> 8) >= thresh) | ((uint32_t)((w.y >> 8) >= thresh) << 1) |
+         ((uint32_t)((w.z >> 8) >= thresh) << 2) | ((uint32_t)((w.w >> 8) >= thresh) << 3);
 }
 
-// Rows [r0, r0 + 64) of one head into a [64][D + 8] tile, asynchronously;
-// rows at or past L are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* rows, const bf16* base, long long ld, int r0,
-                                          int L) {
-  for (int i = threadIdx.x; i < AKB * (D / 8); i += blockDim.x) {
-    const int j = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    const bool ok = r0 + j < L;
-    cp_async16(rows + j * (D + 8) + c8, ok ? base + (long long)(r0 + j) * ld + c8 : base, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16x64 S tile = A (16 x D) * B^T, B rows [64][D + 8] in shared memory
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&s)[8][4], const uint32_t (&a)[D / 16][4],
-                                         const bf16* B, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    const bf16* brow = B + (8 * j + g) * (D + 8) + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      mma16816(s[j], a[ks], ldp(brow + ks * 16), ldp(brow + ks * 16 + 8));
-  }
-}
-
-// acc (16 x D) += P (16 x 64, accumulator layout) * V, V rows [64][D + 8];
-// one ldmatrix.x4.trans gives the B fragments of two 8-dim column tiles
-template <int D>
-__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4], const float (&P)[8][4],
-                                        const bf16* V, int lane) {
-  const int m = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pk(P[2 * kk][0], P[2 * kk][1]), pk(P[2 * kk][2], P[2 * kk][3]),
-                           pk(P[2 * kk + 1][0], P[2 * kk + 1][1]),
-                           pk(P[2 * kk + 1][2], P[2 * kk + 1][3])};
-    const bf16* vrow = V + (16 * kk + (m & 1) * 8 + r) * (D + 8) + (m >> 1) * 8;
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, vrow + np * 16);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int D, bool CAUSAL>
+template <int D, int MODE>
 __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
+  constexpr bool CAUSAL = MODE == MODE_K5, TRAIN = MODE == MODE_K3;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);                  // [2][64][D + 8]
   bf16* Vs = Ks + 2 * AKB * (D + 8);                         // [2][64][D + 8]
-  unsigned char* kf = smem + 2 * 2 * AKB * (D + 8) * 2;     // [2][64] K4 key flags
+  unsigned char* kf = smem + 2 * 2 * AKB * (D + 8) * 2;     // K4: [2][64] key flags
+  // K3: logit x = fma(s, kt.x, kt.y) of key j with kt = kterm[j]: (scale
+  // log2(e), 0) attended, (0, -1e30) masked, (0, -inf) past Lk
+  float2* kterm = reinterpret_cast<float2*>(kf);
   const int b = blockIdx.x, h = blockIdx.y, tile = blockIdx.z;
   const int hk = h / p.group;
   const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
@@ -187,24 +138,35 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
   }
   const int qp0 = p.q_offset + r0, qp1 = p.q_offset + r1;
   const int nblk = (kend + AKB - 1) / AKB;
+  // K3: the folded row, the scale in base 2, the row this lane draws for
+  const uint32_t frow = (uint32_t)b * gridDim.y + h;
+  const float scale = TRAIN ? p.scale * LOG2E : p.scale;
+  const int drow = (t & 1) ? r1 : r0;
+  const int nw = (p.Lk + 31) / 32;
 
-  // stage key block `blk` into buffer `buf`: K and V rows by cp.async, the
-  // key flags (K4: 0 attend, 1 masked, 2 past Lk) by plain loads
+  // key flags (K4, K3: 0 attend, 1 masked, 2 past Lk) of key gj
+  auto flag = [&](int gj) -> unsigned char {
+    if (gj >= p.Lk) return 2;
+    return (p.mask && !p.mask[(long long)b * p.Lk + gj]) ? 1 : 0;
+  };
+  // stage key block `blk` into buffer `buf`: K and V rows by cp.async, K4's
+  // key flags by plain loads
   auto stage = [&](int blk, int buf) {
     const int k0 = blk * AKB;
     load_tile<D>(Ks + buf * AKB * (D + 8), kb, p.k_sl, k0, p.Lk);
     load_tile<D>(Vs + buf * AKB * (D + 8), vb, p.v_sl, k0, p.Lk);
-    asm volatile("cp.async.commit_group;\n" ::);
-    if (!CAUSAL) {
-      for (int j = threadIdx.x; j < AKB; j += blockDim.x) {
-        const int gj = k0 + j;
-        unsigned char f = 2;
-        if (gj < p.Lk) f = (p.mask && !p.mask[(long long)b * p.Lk + gj]) ? 1 : 0;
-        kf[buf * AKB + j] = f;
-      }
-    }
+    cp_async_commit();
+    if (MODE == MODE_K4)
+      for (int j = threadIdx.x; j < AKB; j += blockDim.x) kf[buf * AKB + j] = flag(k0 + j);
   };
   stage(0, 0);
+  // K3: every key's term once (one load latency per block, not one per key block)
+  if (TRAIN)
+    for (int j = threadIdx.x; j < nblk * AKB; j += blockDim.x) {
+      const unsigned char f = flag(j);
+      kterm[j] = f == 0 ? make_float2(scale, 0.f)
+                        : make_float2(0.f, f == 1 ? A_NEG : -INFINITY);
+    }
 
   uint32_t qa[D / 16][4];
   load_q<D>(qa, qb, p.q_sl, r0, r1, v0, v1, t);
@@ -219,27 +181,67 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
     const int buf = blk & 1, k0 = blk * AKB;
     if (blk + 1 < nblk) {
       stage(blk + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();                    // block `blk` has landed for every thread
     if (active) {
+      // K3 dropout: this lane's call per group (row drow, keys 8j + 4u ..
+      // + 3 of the block), one nibble per j; the quad partner (lane ^ 1)
+      // holds the other row of the same groups
+      uint32_t kr0 = 0u, kr1 = 0u;
+      if (TRAIN && p.dropout) {
+        const uint32_t u = t >> 1;
+        uint32_t own = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          own |= keep_nibble(philox4(p.seed + frow, (uint32_t)drow,
+                                     (uint32_t)(k0 >> 2) + 2 * j + u), p.thresh) << (4 * j);
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
+        // bit 4j + (e & 1) of kr0 / kr1: this lane's keys (at 2 (t & 1)
+        // and + 1 in their group) of rows r0 / r1
+        kr0 = ((t & 1) ? other : own) >> (2 * (t & 1));
+        kr1 = ((t & 1) ? own : other) >> (2 * (t & 1));
+        // the row's bits of this block: groups 2j + u at nibble 2j + u of
+        // words k0/32 (j < 4) and k0/32 + 1; lanes t and t ^ 2 share a row
+        uint32_t w_lo = 0u, w_hi = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          w_lo |= ((own >> (4 * j)) & 0xFu) << (4 * (2 * j + u));
+          w_hi |= ((own >> (4 * (j + 4))) & 0xFu) << (4 * (2 * j + u));
+        }
+        w_lo |= __shfl_xor_sync(0xffffffffu, w_lo, 2);
+        w_hi |= __shfl_xor_sync(0xffffffffu, w_hi, 2);
+        const int wg = k0 / 32 + (int)u;
+        if (drow < p.Lq && wg < nw) {
+          uint32_t word = u ? w_hi : w_lo;
+          const int nb = p.Lk - wg * 32;
+          if (nb < 32) word &= (1u << nb) - 1u;
+          p.bits[((long long)frow * p.Lq + drow) * nw + wg] = word;
+        }
+      }
+
       float s[8][4];
-      mma_rows<D>(s, qa, Ks + buf * AKB * (D + 8), g, t);
+      mma_rows<D, 8>(s, qa, Ks + buf * AKB * (D + 8), g, t);
       float mb0 = -INFINITY, mb1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        // K3: the terms of this lane's two keys in one 16-byte load
+        float4 kt2 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (TRAIN) kt2 = *reinterpret_cast<const float4*>(kterm + k0 + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int cl = 8 * j + 2 * t + (e & 1);
           float x;
           if (CAUSAL) {
             const int c = k0 + cl, qp = e < 2 ? qp0 : qp1;
-            x = c >= p.Lk ? -INFINITY : ((c > qp || c >= len) ? A_NEG : s[j][e] * p.scale);
+            x = c >= p.Lk ? -INFINITY : ((c > qp || c >= len) ? A_NEG : s[j][e] * scale);
+          } else if (TRAIN) {
+            x = (e & 1) ? fmaf(s[j][e], kt2.z, kt2.w) : fmaf(s[j][e], kt2.x, kt2.y);
           } else {
             const int f = kf[buf * AKB + cl];
-            x = f == 0 ? s[j][e] * p.scale : (f == 1 ? A_NEG : -INFINITY);
+            x = f == 0 ? s[j][e] * scale : (f == 1 ? A_NEG : -INFINITY);
           }
           s[j][e] = x;
         }
@@ -247,7 +249,8 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
         mb1 = fmaxf(mb1, fmaxf(s[j][2], s[j][3]));
       }
       const float mn0 = fmaxf(m0, qmax(mb0)), mn1 = fmaxf(m1, qmax(mb1));
-      const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+      const float c0 = TRAIN ? ex2(m0 - mn0) : expf(m0 - mn0);
+      const float c1 = TRAIN ? ex2(m1 - mn1) : expf(m1 - mn1);
       l0 *= c0;
       l1 *= c1;
 #pragma unroll
@@ -258,21 +261,25 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float x = expf(s[j][e] - (e < 2 ? mn0 : mn1));
+          float x = TRAIN ? ex2(s[j][e] - (e < 2 ? mn0 : mn1))
+                          : expf(s[j][e] - (e < 2 ? mn0 : mn1));
           if (e < 2) l0 += x; else l1 += x;
+          if (TRAIN && p.dropout && !((e < 2 ? kr0 : kr1) & (1u << (4 * j + (e & 1)))))
+            x = 0.f;
           s[j][e] = x;
         }
       }
       m0 = mn0;
       m1 = mn1;
-      mma_acc<D>(o, s, Vs + buf * AKB * (D + 8), lane);
+      mma_acc<D, 8>(o, s, Vs + buf * AKB * (D + 8), lane);
     }
     __syncthreads();                    // buffer `buf` is free for block blk + 2
   }
   if (!active) return;
   l0 = qsum(l0);
   l1 = qsum(l1);
-  const float s0 = 1.f / fmaxf(l0, 1e-30f), s1 = 1.f / fmaxf(l1, 1e-30f);
+  const float keep = TRAIN ? p.inv_keep : 1.f;
+  const float s0 = keep / fmaxf(l0, 1e-30f), s1 = keep / fmaxf(l1, 1e-30f);
   bf16* ob = p.out + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
@@ -281,25 +288,32 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
     if (v1) *reinterpret_cast<uint32_t*>(ob + r1 * p.o_sl + nt * 8 + 2 * t) =
         pk(o[nt][2] * s1, o[nt][3] * s1);
   }
+  if (TRAIN && t == 0) {
+    // natural log; a row whose keys are all masked keeps lse = -1e30 (as
+    // -1e30 + log(l) rounds in f32), which the backward reads back as such
+    float* lrow = p.lse + (long long)frow * p.Lq;
+    if (v0) lrow[r0] = m0 <= 0.5f * A_NEG ? A_NEG : m0 * LN2 + logf(l0);
+    if (v1) lrow[r1] = m1 <= 0.5f * A_NEG ? A_NEG : m1 * LN2 + logf(l1);
+  }
 }
 
-template <int D, bool CAUSAL>
+template <int D, int MODE>
 int launch_d(const AttnParams& p, dim3 grid, cudaStream_t st) {
   static bool configured = false;     // the dynamic shared memory limit, set once
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<D, CAUSAL>,
+    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<D, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes<D>());
+                                         smem_bytes<D, MODE>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  attn_fwd_kernel<D, CAUSAL><<<grid, AWARPS * 32, smem_bytes<D>(), st>>>(p);
+  attn_fwd_kernel<D, MODE><<<grid, AWARPS * 32, smem_bytes<D, MODE>(), st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// the two instances on the QA path: K4 at the InternViT head dim 64, K5 at
-// the LLM head dim 128
-constexpr int K4_D = 64, K5_D = 128;
+// the three instances: K4 at the InternViT head dim 64, K5 at the LLM head
+// dim 128, K3 at the grounding encoder's head dim 32
+constexpr int K4_D = 64, K5_D = 128, K3_D = 32;
 
 }  // namespace
 
@@ -318,8 +332,8 @@ int vgqa_flash_mha(const void* q, const void* k, const void* v, void* out,
   AttnParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
                q_sb, (long long)D, q_sl, k_sb, (long long)D, k_sl, v_sb, (long long)D, v_sl,
                o_sb, (long long)D, o_sl, mask, nullptr, 1, Lq, Lk, 0, scale};
-  return launch_d<K4_D, false>(p, dim3(B, H, (Lq + AQT - 1) / AQT),
-                               reinterpret_cast<cudaStream_t>(stream));
+  return launch_d<K4_D, MODE_K4>(p, dim3(B, H, (Lq + AQT - 1) / AQT),
+                                 reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K5: causal GQA prefill attention, q [H, Lq, D] (strides q_sh, q_sl),
@@ -336,8 +350,28 @@ int vgqa_flash_gqa_causal(const void* q, const void* k, const void* v, void* out
   AttnParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
                0, q_sh, q_sl, 0, k_sh, k_sl, 0, v_sh, v_sl, 0, o_sh, o_sl,
                nullptr, length, H / Hkv, Lq, S, q_offset, scale};
-  return launch_d<K5_D, true>(p, dim3(1, H, (Lq + AQT - 1) / AQT),
-                              reinterpret_cast<cudaStream_t>(stream));
+  return launch_d<K5_D, MODE_K5>(p, dim3(1, H, (Lq + AQT - 1) / AQT),
+                                 reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K3 forward: q [W, Lq, H*32], k/v [W, Lk, H*32], out like q (contiguous);
+// lse [W*H, Lq] f32; bits [W*H, Lq, ceil(Lk/32)] uint32 when dropout, else
+// unused; mask [W, Lk] uint8 or null.
+int vgqa_flash_train_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                         void* bits, const unsigned char* mask, int W, int Lq, int Lk, int H,
+                         float scale, int seed, unsigned int thresh, int dropout,
+                         float inv_keep, void* stream) {
+  if (W < 1 || H < 1 || Lq < 1 || Lk < 1 || Lk > K3_MAX_LK || H > 65535 ||
+      (Lq + AQT - 1) / AQT > 65535 || (dropout && !bits))
+    return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * K3_D;
+  AttnParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+               (long long)Lq * C, (long long)K3_D, C, (long long)Lk * C, (long long)K3_D, C,
+               (long long)Lk * C, (long long)K3_D, C, (long long)Lq * C, (long long)K3_D, C,
+               mask, nullptr, 1, Lq, Lk, 0, scale,
+               lse, (uint32_t*)bits, (uint32_t)seed, thresh, dropout, inv_keep};
+  return launch_d<K3_D, MODE_K3>(p, dim3(W, H, (Lq + AQT - 1) / AQT),
+                                 reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,479 +1,360 @@
-// Differentiable attention with in-kernel probability dropout (K3), behind a
-// plain C interface: the port of vgqa_tpu/ops/pallas/flash_train.py
-// (flash_mha_train; Pallas _fwd_kernel and _bwd_kernel).
+// Backward of the differentiable attention with in-kernel probability
+// dropout (K3), behind a plain C interface: the port of the backward of
+// vgqa_tpu/ops/pallas/flash_train.py (flash_mha_train; Pallas _bwd_kernel).
+// The forward is attn_fwd_kernel<32, MODE_K3> in flash_attention.cu.
 //
-// Layout: q/out/dout/dq are [W, Lq, H*32] and k/v/dk/dv [W, Lk, H*32],
+// Layout: q/o/dout/dq are [W, Lq, H*32] and k/v/dk/dv [W, Lk, H*32],
 // contiguous, heads packed in the channel dim; the folded batch row of
 // (w, h) is w*H + h, as in the JAX wrapper's fold. key_mask [W, Lk] (uint8,
-// nonzero = attend) or null. lse and delta are f32 [W*H, Lq].
+// nonzero = attend) or null. lse is f32 [W*H, Lq] (natural log); bits the
+// forward's keep bits [W*H, Lq, ceil(Lk/32)] (bit j % 32 of word j / 32 is
+// key j's keep decision), read only when dropout is on.
 //
-// Kernels (one block of 4 warps per (w, h, tile of 64 rows); mma.sync
-// m16n8k16 bf16 with f32 accumulation; keys stream through shared memory
-// in blocks of 64, so any sequence length fits):
-//   flash_fwd_kernel    S = q k^T * scale, masked keys -1e30, online softmax,
-//                       lse = m + log(l), O = (dropped P) V / l.
-//   flash_delta_kernel  delta = rowsum(dO * O) with O as stored (bf16).
-//   flash_dq_kernel     recomputes P = exp(S - lse) and dP = dO v^T per key
-//                       block; dS = P (dP - delta) scale; dq = dS k.
-//   flash_dkv_kernel    per key tile, loops over query blocks: dv = Pw^T dO,
-//                       dk = dS^T q. No atomics: every output element has
-//                       one writer, so results do not vary between runs.
-// Dropout: keep(row, i, j) is a pure function of (seed + row, i, j):
-// Philox4x32-10 keyed by (seed + row, 0), counter (i, j, 0, 0); the top 24
-// bits of the first output word >= thresh keep the element (thresh =
-// ceil(rate * 2^24) in f32, the threshold of the Pallas _keep_mask). The
-// forward and both backward kernels regenerate the same mask, and the plain
-// PyTorch version (ops/kernels/flash_train.py:keep_mask) draws the same
-// bits with integer tensor ops.
+// One launch, one pass, no atomics. A block of 8 warps owns one key tile of
+// 128 keys of one (w, h) and keeps its K and V rows as mma.sync A fragments
+// and its dk and dv in registers; the ceil(Lk / 128) <= 8 key tiles of a
+// (w, h) form one thread-block cluster. Each block:
+//   1. computes delta = rowsum(dO * O) (O as stored) for its share of the
+//      queries, and after a cluster barrier copies the others' shares
+//      through distributed shared memory;
+//   2. walks the query blocks of 64 (q and dO tiles and the tile's keep
+//      bits double-buffered with cp.async), and per block recomputes
+//      S^T = K q^T and dP^T = V dO^T once on the tensor cores, takes
+//      P = 2^(S^T scale log2(e) - lse log2(e)) and the keep bits, forms
+//      dS = P (dP kept / (1 - rate) - delta) scale, accumulates
+//      dv += Pw^T dO and dk += dS^T q (Pw = kept P / (1 - rate); the
+//      second operands through ldmatrix.trans from the row-major tiles), and
+//      writes dS^T (bf16, as Pallas rounds it) to shared memory, where the
+//      block's warps form dq = dS K for the 64 queries on the tensor cores
+//      into the block's own f32 partial [Lq, 32] in shared memory;
+//   3. after a cluster barrier sums, for its share of the queries, the
+//      cluster's partials in the fixed order of the key tiles and writes
+//      dq once. Every output element has one writer and one summation
+//      order, so the results are bit-equal between runs.
+// Masked keys get -1e30 and keys past Lk do not exist, as in the forward; a
+// row whose keys are all masked has lse = -1e30, and P = 1 for its keys.
+// 128-key tiles measured faster than 64-key tiles of 4 warps at L = 124
+// and 418 on the H100 (PERF.md).
+//
+// What bounds it on an H100: the bytes (q, k, v, O, dO and lse in, dq, dk
+// and dv out: 33 us at [512, 418, 32]) and, beside them, the exponentials:
+// one per query-key pair, 89.5 M at [512, 418, 32], ~21 us on the SFUs (16
+// per SM per clock); the five 32-deep products per pair (S, dP, dv, dk,
+// dq) are ~29 us of dense bf16. The kernel therefore keeps the logits,
+// probabilities, mask and dS out of device memory, computes each
+// exponential once, and draws no random numbers.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
-using bf16 = __nv_bfloat16;
+#include "attention_common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace vgqa_attn;
 
 namespace {
 
 constexpr int FD = 32;                 // head dim
-constexpr int FWARPS = 4;
-constexpr int FQT = 16 * FWARPS;       // rows (queries or keys) per block
-constexpr int FKB = 64;                // keys (or queries) per streamed block
-constexpr int FLD = FD + 8;            // row stride of [row][d] tiles (bf16)
-constexpr int FTLD = FKB + 8;          // row stride of [d][row] tiles (bf16)
+constexpr int NW = 8;                  // warps per block, 16 key rows each
+constexpr int KT = 16 * NW;            // keys per block (its key tile)
+constexpr int KW = KT / 32;            // keep-bit words per query of a key tile
+constexpr int QB = 64;                 // queries per streamed block
+constexpr int TLD = FD + 8;            // row stride of [row][d] tiles (bf16)
+constexpr int SLD = QB + 8;            // row stride of the dS^T tile [key][query] (bf16)
+constexpr int MAX_CLUSTER = 8;         // the portable cluster size
 constexpr float F_NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-struct FlashParams {
-  const bf16* q; const bf16* k; const bf16* v;
-  const bf16* o; const bf16* dout;
-  bf16* out; bf16* dq; bf16* dk; bf16* dv;
-  float* lse; float* delta;
+struct BwdParams {
+  const bf16* q; const bf16* k; const bf16* v; const bf16* o; const bf16* dout;
+  bf16* dq; bf16* dk; bf16* dv;
+  const float* lse;
+  const uint32_t* bits;        // keep bits, when dropout
   const unsigned char* mask;   // [W, Lk] or null
   int W, Lq, Lk, H;
   float scale;
-  unsigned int seed;           // int32 seed as its bit pattern
-  unsigned int thresh;         // keep iff (bits >> 8) >= thresh
-  int dropout;                 // 0: rate 0, no mask drawn
-  float inv_keep;              // 1 / (1 - rate)
+  int dropout;
+  float inv_keep;
 };
 
-__device__ __forceinline__ uint32_t philox_word(uint32_t key, uint32_t i, uint32_t j) {
-  uint32_t c0 = i, c1 = j, c2 = 0u, c3 = 0u, k0 = key, k1 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return c0;
+// shared memory of a block (bytes), in the order the kernel lays it out
+constexpr int SM_K = KT * TLD * 2;             // K rows (dq's B operand)
+constexpr int SM_QD = 2 * 2 * QB * TLD * 2;    // q, dO: 2 stages each
+constexpr int SM_DS = KT * SLD * 2;            // dS^T
+constexpr int SM_BITS = 2 * KW * QB * 4;       // keep bits: 2 stages
+int smem_bytes(int Lq) {                       // + lse, delta [lq_pad] and the dq partial
+  const int lq_pad = (Lq + QB - 1) / QB * QB;
+  return SM_K + SM_QD + SM_DS + SM_BITS + 2 * lq_pad * 4 + Lq * FD * 4;
 }
 
-__device__ __forceinline__ bool keep_elem(const FlashParams& p, uint32_t row, int i, int j) {
-  return (philox_word(p.seed + row, (uint32_t)i, (uint32_t)j) >> 8) >= p.thresh;
-}
+// the f32 dq partial [Lq][32] is swizzled in units of 8 floats so that the
+// fragment stores of a half warp fall on distinct banks
+__device__ __forceinline__ int dq_at(int q, int d) { return q * FD + (d ^ ((q & 3) << 3)); }
 
-__device__ __forceinline__ uint32_t ldp(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
+__global__ void __launch_bounds__(NW * 32, 2) flash_bwd_kernel(BwdParams p, int ntiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);                            // [KT][TLD]
+  bf16* Qs = reinterpret_cast<bf16*>(smem + SM_K);                    // [2][QB][TLD]
+  bf16* Os = Qs + 2 * QB * TLD;                                        // [2][QB][TLD] dO
+  bf16* dSs = reinterpret_cast<bf16*>(smem + SM_K + SM_QD);           // [KT][SLD]
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(smem + SM_K + SM_QD + SM_DS);
+  const int lq_pad = (p.Lq + QB - 1) / QB * QB;
+  float* lse_s = reinterpret_cast<float*>(bits_s + 2 * KW * QB);      // [lq_pad] base 2
+  float* delta_s = lse_s + lq_pad;                                     // [lq_pad]
+  float* dq_part = delta_s + lq_pad;                                   // [Lq][32] swizzled
 
-__device__ __forceinline__ uint32_t pk(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16 row) * b (16x8 col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float qmax(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float qsum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// A fragments (16 rows x 32 dims) of rows r0/r1 of a [L, C] row block
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* base, long long ld,
-                                       int r0, int r1, bool v0, bool v1, int t) {
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    a[ks][0] = v0 ? ldp(base + r0 * ld + c) : 0u;
-    a[ks][1] = v1 ? ldp(base + r1 * ld + c) : 0u;
-    a[ks][2] = v0 ? ldp(base + r0 * ld + c + 8) : 0u;
-    a[ks][3] = v1 ? ldp(base + r1 * ld + c + 8) : 0u;
-  }
-}
-
-// Cooperative load of rows [r0, r0 + 64) of a [L, C] block (one head) into
-// a [64][FLD] tile (when rows != null) and its transpose [FD][FTLD] (when
-// tr != null); rows at or past L are zero.
-__device__ __forceinline__ void load_tile(bf16* rows, bf16* tr, const bf16* base, long long ld,
-                                          int r0, int L) {
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < FKB * (FD / 8); i += blockDim.x) {
-    const int j = i / (FD / 8), c8 = (i % (FD / 8)) * 8;
-    uint4 x = zero4;
-    if (r0 + j < L) x = *reinterpret_cast<const uint4*>(base + (long long)(r0 + j) * ld + c8);
-    if (rows) *reinterpret_cast<uint4*>(rows + j * FLD + c8) = x;
-    if (tr) {
-      const bf16* xe = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tr[(c8 + e) * FTLD + j] = xe[e];
-    }
-  }
-}
-
-// key flags of keys [k0, k0 + 64): 0 attend, 1 masked (-1e30), 2 past Lk
-__device__ __forceinline__ void load_flags(unsigned char* kf, const FlashParams& p, int w, int k0) {
-  for (int j = threadIdx.x; j < FKB; j += blockDim.x) {
-    const int gj = k0 + j;
-    unsigned char f = 2;
-    if (gj < p.Lk) f = (p.mask && !p.mask[(long long)w * p.Lk + gj]) ? 1 : 0;
-    kf[j] = f;
-  }
-}
-
-// 16x64 S tile = A (16 x 32) * B^T, B rows [64][FLD] in shared memory
-__device__ __forceinline__ void mma_rows(float (&s)[8][4], const uint32_t (&a)[2][4],
-                                         const bf16* B, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    const bf16* brow = B + (8 * j + g) * FLD + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-      mma16816(s[j], a[ks], ldp(brow + ks * 16), ldp(brow + ks * 16 + 8));
-  }
-}
-
-// acc (16 x 32) += P (16 x 64, accumulator layout) * B, B^T rows [FD][FTLD]
-__device__ __forceinline__ void mma_acc(float (&acc)[4][4], const float (&P)[8][4],
-                                        const bf16* Bt, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pk(P[2 * kk][0], P[2 * kk][1]), pk(P[2 * kk][2], P[2 * kk][3]),
-                           pk(P[2 * kk + 1][0], P[2 * kk + 1][1]),
-                           pk(P[2 * kk + 1][2], P[2 * kk + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const bf16* brow = Bt + (nt * 8 + g) * FTLD + 16 * kk + 2 * t;
-      mma16816(acc[nt], a, ldp(brow), ldp(brow + 8));
-    }
-  }
-}
-
-__device__ __forceinline__ void store_rows(bf16* base, long long ld, const float (&acc)[4][4],
-                                           int r0, int r1, bool v0, bool v1, int t, float s0,
-                                           float s1) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    if (v0) *reinterpret_cast<uint32_t*>(base + r0 * ld + nt * 8 + 2 * t) =
-        pk(acc[nt][0] * s0, acc[nt][1] * s0);
-    if (v1) *reinterpret_cast<uint32_t*>(base + r1 * ld + nt * 8 + 2 * t) =
-        pk(acc[nt][2] * s1, acc[nt][3] * s1);
-  }
-}
-
-__global__ void __launch_bounds__(FWARPS * 32) flash_fwd_kernel(FlashParams p) {
-  __shared__ __align__(16) bf16 Ks[FKB * FLD];
-  __shared__ __align__(16) bf16 Vt[FD * FTLD];
-  __shared__ unsigned char kf[FKB];
-  const int w = blockIdx.x, h = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = ntiles > 1 ? (int)cluster.block_rank() : 0;   // the key tile
+  const int frow = blockIdx.x / ntiles;                           // w*H + h
+  const int w = frow / p.H, h = frow % p.H;
   const long long C = (long long)p.H * FD;
-  const uint32_t row = (uint32_t)w * p.H + h;
   const bf16* qb = p.q + (long long)w * p.Lq * C + h * FD;
-  const bf16* kb = p.k + (long long)w * p.Lk * C + h * FD;
-  const bf16* vb = p.v + (long long)w * p.Lk * C + h * FD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.z * FQT + warp * 16 + g, r1 = r0 + 8;
-  const bool v0 = r0 < p.Lq, v1 = r1 < p.Lq, active = blockIdx.z * FQT + warp * 16 < p.Lq;
-
-  uint32_t qa[2][4];
-  load_a(qa, qb, C, r0, r1, v0, v1, t);
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < p.Lk; k0 += FKB) {
-    __syncthreads();                    // the previous block's tiles are consumed
-    load_tile(Ks, nullptr, kb, C, k0, p.Lk);
-    load_tile(nullptr, Vt, vb, C, k0, p.Lk);
-    load_flags(kf, p, w, k0);
-    __syncthreads();
-    if (!active) continue;
-
-    float s[8][4];
-    mma_rows(s, qa, Ks, g, t);
-    float mb0 = -INFINITY, mb1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = kf[8 * j + 2 * t + (e & 1)];
-        s[j][e] = f == 0 ? s[j][e] * p.scale : (f == 1 ? F_NEG : -INFINITY);
-      }
-      mb0 = fmaxf(mb0, fmaxf(s[j][0], s[j][1]));
-      mb1 = fmaxf(mb1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float mn0 = fmaxf(m0, qmax(mb0)), mn1 = fmaxf(m1, qmax(mb1));
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[i][0] *= c0; o[i][1] *= c0; o[i][2] *= c1; o[i][3] *= c1;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = expf(s[j][e] - (e < 2 ? mn0 : mn1));
-        if (e < 2) l0 += x; else l1 += x;
-        const int c = k0 + 8 * j + 2 * t + (e & 1);
-        if (p.dropout && c < p.Lk && !keep_elem(p, row, e < 2 ? r0 : r1, c)) x = 0.f;
-        s[j][e] = x;
-      }
-    }
-    m0 = mn0;
-    m1 = mn1;
-    mma_acc(o, s, Vt, g, t);
-  }
-  if (!active) return;
-  l0 = qsum(l0);
-  l1 = qsum(l1);
-  bf16* ob = p.out + (long long)w * p.Lq * C + h * FD;
-  store_rows(ob, C, o, r0, r1, v0, v1, t, p.inv_keep / fmaxf(l0, 1e-30f),
-             p.inv_keep / fmaxf(l1, 1e-30f));
-  if (t == 0) {
-    float* lrow = p.lse + (long long)row * p.Lq;
-    if (v0) lrow[r0] = m0 + logf(l0);
-    if (v1) lrow[r1] = m1 + logf(l1);
-  }
-}
-
-// one warp per (row, query): delta = sum_d dO * O, both as stored
-__global__ void flash_delta_kernel(FlashParams p) {
-  const long long idx = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (idx >= (long long)p.W * p.H * p.Lq) return;
-  const long long row = idx / p.Lq;
-  const int i = (int)(idx % p.Lq);
-  const long long w = row / p.H, h = row % p.H;
-  const long long off = (w * p.Lq + i) * p.H * FD + h * FD + lane;
-  float x = __bfloat162float(p.o[off]) * __bfloat162float(p.dout[off]);
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  if (lane == 0) p.delta[idx] = x;
-}
-
-__global__ void __launch_bounds__(FWARPS * 32) flash_dq_kernel(FlashParams p) {
-  __shared__ __align__(16) bf16 Ks[FKB * FLD];
-  __shared__ __align__(16) bf16 Vs[FKB * FLD];
-  __shared__ __align__(16) bf16 Kt[FD * FTLD];
-  __shared__ unsigned char kf[FKB];
-  const int w = blockIdx.x, h = blockIdx.y;
-  const long long C = (long long)p.H * FD;
-  const uint32_t row = (uint32_t)w * p.H + h;
-  const bf16* qb = p.q + (long long)w * p.Lq * C + h * FD;
+  const bf16* ob = p.o + (long long)w * p.Lq * C + h * FD;
   const bf16* db = p.dout + (long long)w * p.Lq * C + h * FD;
   const bf16* kb = p.k + (long long)w * p.Lk * C + h * FD;
   const bf16* vb = p.v + (long long)w * p.Lk * C + h * FD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.z * FQT + warp * 16 + g, r1 = r0 + 8;
-  const bool v0 = r0 < p.Lq, v1 = r1 < p.Lq, active = blockIdx.z * FQT + warp * 16 < p.Lq;
-
-  uint32_t qa[2][4], da[2][4];
-  load_a(qa, qb, C, r0, r1, v0, v1, t);
-  load_a(da, db, C, r0, r1, v0, v1, t);
-  const float* lrow = p.lse + (long long)row * p.Lq;
-  const float* drow = p.delta + (long long)row * p.Lq;
-  const float lse0 = v0 ? lrow[r0] : 0.f, lse1 = v1 ? lrow[r1] : 0.f;
-  const float dl0 = v0 ? drow[r0] : 0.f, dl1 = v1 ? drow[r1] : 0.f;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-  for (int k0 = 0; k0 < p.Lk; k0 += FKB) {
-    __syncthreads();
-    load_tile(Ks, Kt, kb, C, k0, p.Lk);
-    load_tile(Vs, nullptr, vb, C, k0, p.Lk);
-    load_flags(kf, p, w, k0);
-    __syncthreads();
-    if (!active) continue;
-
-    float s[8][4], dp[8][4];
-    mma_rows(s, qa, Ks, g, t);
-    mma_rows(dp, da, Vs, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = 8 * j + 2 * t + (e & 1);
-        const int f = kf[cl];
-        float ds = 0.f;
-        if (f != 2) {
-          const float x = f == 0 ? s[j][e] * p.scale : F_NEG;
-          const float P = expf(x - (e < 2 ? lse0 : lse1));
-          float d = dp[j][e];
-          if (p.dropout) d = keep_elem(p, row, e < 2 ? r0 : r1, k0 + cl) ? d * p.inv_keep : 0.f;
-          ds = P * (d - (e < 2 ? dl0 : dl1)) * p.scale;
-        }
-        s[j][e] = ds;
-      }
-    }
-    mma_acc(acc, s, Kt, g, t);
-  }
-  if (!active) return;
-  store_rows(p.dq + (long long)w * p.Lq * C + h * FD, C, acc, r0, r1, v0, v1, t, 1.f, 1.f);
-}
-
-__global__ void __launch_bounds__(FWARPS * 32) flash_dkv_kernel(FlashParams p) {
-  __shared__ __align__(16) bf16 Qs[FKB * FLD];
-  __shared__ __align__(16) bf16 Ds[FKB * FLD];
-  __shared__ __align__(16) bf16 Qt[FD * FTLD];
-  __shared__ __align__(16) bf16 Dt[FD * FTLD];
-  __shared__ float lse_s[FKB], delta_s[FKB];
-  const int w = blockIdx.x, h = blockIdx.y;
-  const long long C = (long long)p.H * FD;
-  const uint32_t row = (uint32_t)w * p.H + h;
-  const bf16* qb = p.q + (long long)w * p.Lq * C + h * FD;
-  const bf16* db = p.dout + (long long)w * p.Lq * C + h * FD;
-  const bf16* kb = p.k + (long long)w * p.Lk * C + h * FD;
-  const bf16* vb = p.v + (long long)w * p.Lk * C + h * FD;
-  const float* lrow = p.lse + (long long)row * p.Lq;
-  const float* drow = p.delta + (long long)row * p.Lq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.z * FQT + warp * 16 + g, r1 = r0 + 8;    // key rows
-  const bool v0 = r0 < p.Lk, v1 = r1 < p.Lk, active = blockIdx.z * FQT + warp * 16 < p.Lk;
+  const int key0 = rank * KT;
+  const int r0 = key0 + warp * 16 + g, r1 = r0 + 8;               // this lane's key rows
+  const bool v0 = r0 < p.Lk, v1 = r1 < p.Lk;
   const bool m0 = v0 && p.mask && !p.mask[(long long)w * p.Lk + r0];
   const bool m1 = v1 && p.mask && !p.mask[(long long)w * p.Lk + r1];
+  // logit (base 2) x = fma(S^T, kt.x, kt.y) of key row r0 / r1: (scale
+  // log2(e), 0) attended, (0, -1e30) masked, (0, -inf) past Lk (P = 0)
+  const float scale2 = p.scale * LOG2E;
+  const float2 kt0 = !v0 ? make_float2(0.f, -INFINITY)
+                         : (m0 ? make_float2(0.f, F_NEG) : make_float2(scale2, 0.f));
+  const float2 kt1 = !v1 ? make_float2(0.f, -INFINITY)
+                         : (m1 ? make_float2(0.f, F_NEG) : make_float2(scale2, 0.f));
+  const int nw = (p.Lk + 31) / 32;
+  const int nqb = lq_pad / QB;
+  const uint32_t* brow = p.dropout ? p.bits + (long long)frow * p.Lq * nw : nullptr;
 
-  uint32_t ka[2][4], va[2][4];
-  load_a(ka, kb, C, r0, r1, v0, v1, t);
-  load_a(va, vb, C, r0, r1, v0, v1, t);
-  float dk[4][4], dv[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int q0 = 0; q0 < p.Lq; q0 += FKB) {
-    __syncthreads();
-    load_tile(Qs, Qt, qb, C, q0, p.Lq);
-    load_tile(Ds, Dt, db, C, q0, p.Lq);
-    for (int i = threadIdx.x; i < FKB; i += blockDim.x) {
-      const bool in = q0 + i < p.Lq;
-      lse_s[i] = in ? lrow[q0 + i] : INFINITY;    // P = 0 for queries past Lq
-      delta_s[i] = in ? drow[q0 + i] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    float st[8][4], dpt[8][4];
-    mma_rows(st, ka, Qs, g, t);      // S^T: keys x queries
-    mma_rows(dpt, va, Ds, g, t);     // dP^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = 8 * j + 2 * t + (e & 1);
-        const bool valid = e < 2 ? v0 : v1;
-        float P = 0.f, d = 0.f;
-        if (valid) {
-          const float x = (e < 2 ? m0 : m1) ? F_NEG : st[j][e] * p.scale;
-          P = expf(x - lse_s[cl]);
-          d = dpt[j][e];
-        }
-        float pw = P;
-        if (p.dropout && valid && q0 + cl < p.Lq) {
-          if (keep_elem(p, row, q0 + cl, e < 2 ? r0 : r1)) {
-            d *= p.inv_keep;
-            pw *= p.inv_keep;
-          } else {
-            d = 0.f;
-            pw = 0.f;
-          }
-        }
-        st[j][e] = P * (d - delta_s[cl]) * p.scale;   // dS^T
-        dpt[j][e] = pw;                                // Pw^T
+  // stage query block `qi` into buffer `buf`: q and dO rows, keep bits
+  auto stage = [&](int qi, int buf) {
+    const int q0 = qi * QB;
+    load_tile<FD>(Qs + buf * QB * TLD, qb, C, q0, p.Lq);
+    load_tile<FD>(Os + buf * QB * TLD, db, C, q0, p.Lq);
+    if (p.dropout) {
+      for (int i = threadIdx.x; i < KW * QB; i += blockDim.x) {
+        const int wi = i / QB, qq = i % QB, word = key0 / 32 + wi;
+        const bool ok = q0 + qq < p.Lq && word < nw;
+        cp_async4(bits_s + (buf * KW + wi) * QB + qq,
+                  ok ? brow + (long long)(q0 + qq) * nw + word : brow, ok);
       }
     }
-    mma_acc(dv, dpt, Dt, g, t);
-    mma_acc(dk, st, Qt, g, t);
-  }
-  if (!active) return;
-  const long long off = (long long)w * p.Lk * C + h * FD;
-  store_rows(p.dk + off, C, dk, r0, r1, v0, v1, t, 1.f, 1.f);
-  store_rows(p.dv + off, C, dv, r0, r1, v0, v1, t, 1.f, 1.f);
-}
+    cp_async_commit();
+  };
+  load_tile<FD>(Ks, kb, C, key0, p.Lk, KT);
+  stage(0, 0);
 
-FlashParams make_params(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, void* out, void* dq, void* dk, void* dv, float* lse,
-                        float* delta, const unsigned char* mask, int W, int Lq, int Lk, int H,
-                        float scale, int seed, unsigned int thresh, int dropout,
-                        float inv_keep) {
-  return FlashParams{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-                     (const bf16*)dout, (bf16*)out, (bf16*)dq, (bf16*)dk, (bf16*)dv,
-                     lse, delta, mask, W, Lq, Lk, H, scale, (unsigned int)seed, thresh,
-                     dropout, inv_keep};
+  // 1. lse in base 2 for every query (+inf past Lq: P = 0 there), and
+  // delta for this block's share of the queries, 4 threads per query
+  for (int i = threadIdx.x; i < lq_pad; i += blockDim.x) {
+    float l = INFINITY;
+    if (i < p.Lq) {
+      l = p.lse[(long long)frow * p.Lq + i];
+      l = l <= 0.5f * F_NEG ? F_NEG : l * LOG2E;
+    }
+    lse_s[i] = l;
+    if (i >= p.Lq) delta_s[i] = 0.f;
+  }
+  const int share = (p.Lq + ntiles - 1) / ntiles;
+  const int s_lo = rank * share, s_hi = min(p.Lq, s_lo + share);
+  for (int base = s_lo; base < s_hi; base += blockDim.x / 4) {
+    const int i = base + threadIdx.x / 4, c8 = (threadIdx.x & 3) * 8;
+    float x = 0.f;
+    if (i < s_hi) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(ob + (long long)i * C + c8);
+      const uint4 gv = *reinterpret_cast<const uint4*>(db + (long long)i * C + c8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+        x += of.x * df.x + of.y * df.y;
+      }
+    }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (i < s_hi && (threadIdx.x & 3) == 0) delta_s[i] = x;
+  }
+  if (ntiles > 1) {
+    cluster.sync();                       // every share of delta is written
+    for (int i = threadIdx.x; i < p.Lq; i += blockDim.x) {
+      const int owner = i / share;
+      if (owner != rank) delta_s[i] = cluster.map_shared_rank(delta_s, owner)[i];
+    }
+  }
+
+  uint32_t ka[FD / 16][4], va[FD / 16][4];
+  load_q<FD>(ka, kb, C, r0, r1, v0, v1, t);
+  load_q<FD>(va, vb, C, r0, r1, v0, v1, t);
+  float dk[FD / 8][4], dv[FD / 8][4];
+#pragma unroll
+  for (int i = 0; i < FD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  // this lane's keep bits: word (warp / 2) of the tile's keys, bit of r0
+  const int kwi = (warp * 16) / 32, kbit = (warp & 1) * 16 + g;
+  // dq = dS K: warp `warp` forms queries 16 (warp % 4) .. + 16, dims
+  // 16 (warp / 4) .. + 16
+  const int dq_row = (warp & 3) * 16, dq_np = warp >> 2;
+
+  for (int qi = 0; qi < nqb; ++qi) {
+    const int buf = qi & 1, q0 = qi * QB;
+    if (qi + 1 < nqb) {
+      stage(qi + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();      // block qi has landed; dS^T of block qi - 1 is consumed
+    const bf16* Qt = Qs + buf * QB * TLD;
+    const bf16* Ot = Os + buf * QB * TLD;
+    const uint32_t* bt = bits_s + (buf * KW + kwi) * QB;
+
+    // 2. two halves of 32 queries: S^T, dP^T -> P, Pw, dS -> dv, dk, dS^T
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      float st[4][4], dpt[4][4];
+      mma_rows<FD, 4>(st, ka, Qt + hq * 32 * TLD, g, t);
+      mma_rows<FD, 4>(dpt, va, Ot + hq * 32 * TLD, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ql = hq * 32 + 8 * j + 2 * t;              // local query of e = 0, 2
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + q0 + ql);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + q0 + ql);
+        uint2 kw = make_uint2(~0u, ~0u);                     // rate 0: all kept, inv_keep 1
+        if (p.dropout) kw = *reinterpret_cast<const uint2*>(bt + ql);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse2 = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+          const float2 kt = e < 2 ? kt0 : kt1;
+          const float P = ex2(fmaf(st[j][e], kt.x, kt.y) - lse2);
+          const bool keep = ((e & 1) ? kw.y : kw.x) >> (kbit + (e < 2 ? 0 : 8)) & 1u;
+          const float kp = keep ? p.inv_keep : 0.f;
+          st[j][e] = P * (dpt[j][e] * kp - dl) * p.scale;    // dS^T
+          dpt[j][e] = P * kp;                                // Pw^T
+        }
+      }
+      mma_acc<FD, 4>(dv, dpt, Ot + hq * 32 * TLD, lane);
+      mma_acc<FD, 4>(dk, st, Qt + hq * 32 * TLD, lane);
+      const int kl = warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = hq * 32 + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dSs + kl * SLD + c) = pk(st[j][0], st[j][1]);
+        *reinterpret_cast<uint32_t*>(dSs + (kl + 8) * SLD + c) = pk(st[j][2], st[j][3]);
+      }
+    }
+    __syncthreads();                      // dS^T of block qi is complete
+
+    // dq (64 queries x 32 dims) = dS (64 x KT) K (KT x 32): A from dS^T and
+    // B from the K rows, both through ldmatrix.trans
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+    for (int ks = 0; ks < KT / 16; ++ks) {
+      uint32_t a[4], b[4];
+      ldsm_x4_trans(a, dSs + (ks * 16 + (mi >> 1) * 8 + rr) * SLD + dq_row + (mi & 1) * 8);
+      ldsm_x4_trans(b, Ks + (16 * ks + (mi & 1) * 8 + rr) * TLD + (mi >> 1) * 8 + dq_np * 16);
+      mma16816(acc[0], a, b[0], b[1]);
+      mma16816(acc[1], a, b[2], b[3]);
+    }
+    const int qa0 = q0 + dq_row + g, qa1 = qa0 + 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int d = (dq_np * 2 + i) * 8 + 2 * t;
+      if (qa0 < p.Lq) *reinterpret_cast<float2*>(dq_part + dq_at(qa0, d)) =
+          make_float2(acc[i][0], acc[i][1]);
+      if (qa1 < p.Lq) *reinterpret_cast<float2*>(dq_part + dq_at(qa1, d)) =
+          make_float2(acc[i][2], acc[i][3]);
+    }
+  }
+
+  // dk, dv of this lane's key rows
+  const long long koff = (long long)w * p.Lk * C + h * FD;
+#pragma unroll
+  for (int nt = 0; nt < FD / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (v0) {
+      *reinterpret_cast<uint32_t*>(p.dk + koff + r0 * C + c) = pk(dk[nt][0], dk[nt][1]);
+      *reinterpret_cast<uint32_t*>(p.dv + koff + r0 * C + c) = pk(dv[nt][0], dv[nt][1]);
+    }
+    if (v1) {
+      *reinterpret_cast<uint32_t*>(p.dk + koff + r1 * C + c) = pk(dk[nt][2], dk[nt][3]);
+      *reinterpret_cast<uint32_t*>(p.dv + koff + r1 * C + c) = pk(dv[nt][2], dv[nt][3]);
+    }
+  }
+
+  // 3. dq of this block's share of the queries: the key tiles' partials
+  // added in rank order, 4 dims per thread
+  if (ntiles > 1) cluster.sync(); else __syncthreads();
+  bf16* dqb = p.dq + (long long)w * p.Lq * C + h * FD;
+  for (int idx = threadIdx.x; idx < (s_hi - s_lo) * (FD / 4); idx += blockDim.x) {
+    const int i = s_lo + idx / (FD / 4), d = (idx % (FD / 4)) * 4;
+    float4 v[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c < ntiles) {
+        const float* part = ntiles > 1 ? cluster.map_shared_rank(dq_part, c) : dq_part;
+        v[c] = *reinterpret_cast<const float4*>(part + dq_at(i, d));
+      }
+    }
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c < ntiles) {
+        s.x += v[c].x; s.y += v[c].y; s.z += v[c].z; s.w += v[c].w;
+      }
+    }
+    uint2 out = make_uint2(pk(s.x, s.y), pk(s.z, s.w));
+    *reinterpret_cast<uint2*>(dqb + (long long)i * C + d) = out;
+  }
+  if (ntiles > 1) cluster.sync();         // peers read this block's partial until here
 }
 
 }  // namespace
 
 extern "C" {
 
-// out = attention(q, k, v) with dropout, lse [W*H, Lq]
-int vgqa_flash_train_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                         const unsigned char* mask, int W, int Lq, int Lk, int H, float scale,
-                         int seed, unsigned int thresh, int dropout, float inv_keep,
-                         void* stream) {
-  if (W < 1 || H < 1 || Lq < 1 || Lk < 1 || H > 65535) return (int)cudaErrorInvalidValue;
-  FlashParams p = make_params(q, k, v, nullptr, nullptr, out, nullptr, nullptr, nullptr, lse,
-                              nullptr, mask, W, Lq, Lk, H, scale, seed, thresh, dropout,
-                              inv_keep);
-  dim3 grid(W, H, (Lq + FQT - 1) / FQT);
-  flash_fwd_kernel<<<grid, FWARPS * 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// dq, dk, dv from (q, k, v, o, dout, lse); delta [W*H, Lq] f32 is scratch
+// dq, dk, dv from (q, k, v, o, dout, lse, keep bits); one launch of
+// ceil(Lk / 128) * W * H blocks, each (w, h)'s key tiles one cluster.
 int vgqa_flash_train_bwd(const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, float* delta,
+                         const void* dout, const float* lse, const void* bits,
                          const unsigned char* mask, void* dq, void* dk, void* dv, int W, int Lq,
-                         int Lk, int H, float scale, int seed, unsigned int thresh, int dropout,
-                         float inv_keep, void* stream) {
-  if (W < 1 || H < 1 || Lq < 1 || Lk < 1 || H > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  FlashParams p = make_params(q, k, v, o, dout, nullptr, dq, dk, dv, const_cast<float*>(lse),
-                              delta, mask, W, Lq, Lk, H, scale, seed, thresh, dropout, inv_keep);
-  const long long warps = (long long)W * H * Lq;
-  flash_delta_kernel<<<(unsigned)((warps * 32 + 255) / 256), 256, 0, st>>>(p);
-  cudaError_t e = cudaGetLastError();
+                         int Lk, int H, float scale, int dropout, float inv_keep,
+                         void* stream) {
+  const int ntiles = (Lk + KT - 1) / KT;
+  if (W < 1 || H < 1 || Lq < 1 || Lk < 1 || Lq > 1024 || ntiles > MAX_CLUSTER ||
+      (long long)W * H * ntiles > 2147483647LL || (dropout && !bits))
+    return (int)cudaErrorInvalidValue;
+  BwdParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+              (const bf16*)dout, (bf16*)dq, (bf16*)dk, (bf16*)dv, lse,
+              (const uint32_t*)bits, mask, W, Lq, Lk, H, scale, dropout, inv_keep};
+  static unsigned long long ready = 0;    // devices whose shared memory limit is set
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
-  flash_dq_kernel<<<dim3(W, H, (Lq + FQT - 1) / FQT), FWARPS * 32, 0, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_dkv_kernel<<<dim3(W, H, (Lk + FQT - 1) / FQT), FWARPS * 32, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  if (device >= 64 || !(ready >> device & 1ull)) {
+    e = cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes(1024));
+    if (e != cudaSuccess) return (int)e;
+    if (device < 64) ready |= 1ull << device;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ntiles * W * H);
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = smem_bytes(Lq);
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ntiles;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ntiles > 1 ? 1 : 0;      // one key tile: an ordinary launch
+  return (int)cudaLaunchKernelEx(&cfg, flash_bwd_kernel, p, ntiles);
 }
 
 }  // extern "C"

@@ -38,9 +38,10 @@ _SIGNATURES = {
     "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
     "vgqa_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                        _P, _L, _P, _P, _I, _L, _P],
-    "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
+    "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F,
+                             _P],
     "vgqa_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _F, _I, _U, _I, _F, _P],
+                             _I, _I, _I, _I, _F, _I, _F, _P],
     "vgqa_flash_mha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vgqa_flash_gqa_causal": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -8,32 +8,44 @@ b = (lead index, head) of q/k/v ``[..., L, H*dh]``::
     lse = m + log(l)                     (m = row max, l = sum exp(S - m))
     O = (keep * exp(S - m) / (1 - rate)) v / max(l, 1e-30)
 
-and the backward recomputes P = exp(S - lse) from (q, k, lse), regenerates
-the keep mask, and gives dq, dk, dv with delta = rowsum(dO * O) (O as
+and the backward recomputes P = exp(S - lse) from (q, k, lse), takes the
+forward's keep mask, and gives dq, dk, dv with delta = rowsum(dO * O) (O as
 stored in the input dtype), dS = P (dP - delta) scale.
 
-The dropout keep mask is a pure function keep(seed + b, i, j): Philox4x32-10
-keyed by (seed + b, 0), counter (i, j, 0, 0), the top 24 bits of the first
-output word >= ceil(f32(rate) * 2^24) (the threshold of the Pallas
-``_keep_mask``). The TPU's hardware bits cannot be reproduced; this
-definition is written once in CUDA and once in torch integer ops
-(:func:`keep_mask`), so the kernel and the plain version draw bit-identical
-masks.
+The dropout keep mask is a pure function keep(seed + b, i, j): word
+(j mod 4) of Philox4x32-10 with key (seed + b, 0) and counter
+(i, floor(j / 4), 0, 0), kept when its top 24 bits are >=
+ceil(f32(rate) * 2^24) (the threshold of the Pallas ``_keep_mask``). One
+call gives the decisions of four neighbouring keys. The TPU's hardware bits
+cannot be reproduced; this definition is written once in CUDA and once in
+torch integer ops (:func:`keep_mask`), so the kernel and the plain version
+draw bit-identical masks.
 
-On the H100 (``csrc/flash_train.cu``): at the training path's shapes (512
-rows = 64 frames x 8 heads, L = 124 or 418, dh = 32) the work is small
-against the bytes (2*L*32 multiply-adds per query-key pair vs. reading
-q/k/v/dO once), so the kernels are bound by memory traffic and launch time
-as long as the [L, L] logits, probabilities and dropout mask stay out of
-device memory: a plain version writes and re-reads all three per head. The
-kernels keep them in registers: one block per (row, tile of 64
-queries or keys), keys or queries streaming through shared memory in blocks
-of 64 as bf16, S and dP on the tensor cores (``mma.sync`` m16n8k16, f32
-accumulation), the keep mask regenerated from Philox in registers. The
-backward is three launches (delta; dq per query tile; dk and dv per key
-tile, looping over the queries), with one writer per output element, so
-results do not vary between runs. The port pads nothing (Pallas pads L and
-dh to 128): the kernels mask the ragged edge. ``wgmma``/TMA is later work.
+On the H100 the forward is ``attn_fwd_kernel<32, MODE_K3>`` in
+``csrc/flash_attention.cu`` (K4/K5's kernel: keys and values in blocks of 64
+through ``cp.async`` double buffers, V's fragments through
+``ldmatrix.trans``, ``mma.sync`` m16n8k16 with f32 accumulation, the logits
+in base 2 so that each probability is one ``ex2``). Each lane draws one
+Philox call per group of four keys and swaps keep bits with its quad
+partner, and the forward writes the decisions as bits
+(:func:`pack_keep_bits`'s layout, ``[W*H, Lq, ceil(Lk/32)]`` int32, 12 MB at
+[512, 418]), which :class:`_FlashTrain` saves beside lse: the mask is drawn
+once per call. The CPU path keeps the same flow: its forward returns the
+mask it drew as bits and its backward unpacks them. The backward (``csrc/flash_train.cu``) is one launch: a
+block per key tile of one (w, h) keeps dk and dv in registers and walks the
+query blocks once, recomputing S and dP once; dq = dS K goes into a per-tile
+f32 partial in shared memory, and the key tiles of a (w, h) form a
+thread-block cluster that computes delta and then sums the dq partials in a
+fixed order through distributed shared memory. No atomics: the results are
+bit-equal between runs. The port pads nothing (Pallas pads L and dh to 128):
+the kernels mask the ragged edge.
+
+What bounds K3 on this card at the training path's shapes (512 rows = 64
+frames x 8 heads, L = 124 or 418, dh = 32): the bytes (q, k, v and the
+output forward; q, k, v, O, dO, lse and the three gradients back: 17 + 33 us
+at L = 418), and beside them the exponentials: one pass of B L^2 = 89.5 M at
+L = 418 takes ~21 us on the SFUs (16 per SM per clock), more than the
+tensor-core work (~12 us forward) of a 32-deep head.
 
 ``flash_mha_train`` launches the kernels for CUDA tensors (bf16 only) and
 runs the plain version for CPU tensors (f32 or bf16); anything else raises.
@@ -84,43 +96,62 @@ def _mulhilo(a: torch.Tensor, m: int):
     return (a_hi * m_hi + (mid >> 16) + (t >> 32)) & _MASK32, t & _MASK32
 
 
-def _philox_word(key: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    """First output word of Philox4x32-10, key (key, 0), counter (i, j, 0, 0)."""
-    shape = torch.broadcast_shapes(key.shape, i.shape, j.shape)
-    c0, c1 = i.expand(shape), j.expand(shape)
-    c2 = c3 = torch.zeros(shape, dtype=torch.int64, device=i.device)
-    k0, k1 = key, 0
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123): the four output words for ``counter``
+    (c0, c1, c2, c3) and ``key`` (k0, k1), each an int64 tensor (or int)
+    holding uint32 values, broadcast together."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
     for r in range(10):
         if r:
             k0, k1 = (k0 + _PHILOX_W0) & _MASK32, (k1 + _PHILOX_W1) & _MASK32
         hi0, lo0 = _mulhilo(c0, _PHILOX_M0)
         hi1, lo1 = _mulhilo(c2, _PHILOX_M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0
+    return torch.broadcast_tensors(c0, c1, c2, c3)
 
 
 def keep_mask(seed: int, rows: int, Lq: int, Lk: int, rate: float,
               device=None) -> torch.Tensor:
     """The kernels' keep mask [rows, Lq, Lk] (True = keep) for folded rows
-    0..rows-1, drawn with torch integer ops in chunks of rows."""
+    0..rows-1: key j of (row b, query i) is word j % 4 of the Philox call
+    with counter (i, j // 4), drawn with torch integer ops in chunks of rows."""
     thresh = keep_threshold(rate)
     out = torch.empty((rows, Lq, Lk), dtype=torch.bool, device=device)
+    groups = (Lk + 3) // 4
     i = torch.arange(Lq, dtype=torch.int64, device=device)[None, :, None]
-    j = torch.arange(Lk, dtype=torch.int64, device=device)[None, None, :]
-    chunk = max(1, (1 << 22) // (Lq * Lk))
+    c = torch.arange(groups, dtype=torch.int64, device=device)[None, None, :]
+    chunk = max(1, (1 << 20) // (Lq * groups))
     for r in range(0, rows, chunk):
         n = min(chunk, rows - r)
         key = ((int(seed) + r + torch.arange(n, dtype=torch.int64, device=device))
                & _MASK32)[:, None, None]
-        out[r:r + n] = (_philox_word(key, i, j) >> 8) >= thresh
+        words = torch.stack(philox4x32((i, c, 0, 0), (key, 0)), dim=-1)   # [n, Lq, G, 4]
+        out[r:r + n] = ((words >> 8) >= thresh).reshape(n, Lq, 4 * groups)[..., :Lk]
     return out
 
 
-def flash_train_fwd_reference(q, k, v, key_mask, seed: int, rate: float,
-                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain forward on folded rows (the math of the Pallas ``_fwd_kernel``):
-    q [B, Lq, dh], k/v [B, Lk, dh], key_mask [B, Lk] bool or None.
-    Returns (out [B, Lq, dh] in q's dtype, lse [B, Lq] f32)."""
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """[rows, Lq, Lk] bool -> [rows, Lq, ceil(Lk/32)] int32 (uint32 bit
+    patterns): bit j % 32 of word j // 32 is key j, zero past Lk; the layout
+    of the bits the forward kernel writes."""
+    rows, Lq, Lk = keep.shape
+    nw = (Lk + 31) // 32
+    padded = torch.zeros((rows, Lq, nw * 32), dtype=torch.int64, device=keep.device)
+    padded[..., :Lk] = keep.to(torch.int64)
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64, device=keep.device)
+    words = (padded.reshape(rows, Lq, nw, 32) * weights).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, Lk: int) -> torch.Tensor:
+    """Inverse of :func:`pack_keep_bits`: [rows, Lq, nw] int32 -> [rows, Lq, Lk] bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    keep = (bits[..., None] >> shifts) & 1
+    return keep.reshape(*bits.shape[:-1], -1)[..., :Lk].to(torch.bool)
+
+
+def _fwd_plain(q, k, v, key_mask, keep, rate: float, scale: float):
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     if key_mask is not None:
         s = torch.where(key_mask[:, None, :], s, NEG_INF)
@@ -128,25 +159,20 @@ def flash_train_fwd_reference(q, k, v, key_mask, seed: int, rate: float,
     p = torch.exp(s - m[..., None])
     l = p.sum(-1)
     lse = m + torch.log(l)
-    if rate > 0.0:
-        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+    if keep is not None:
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate))
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype), lse
 
 
-def flash_train_bwd_reference(q, k, v, o, do, lse, key_mask, seed: int, rate: float,
-                              scale: float):
-    """Plain backward on folded rows (the math of the Pallas ``_bwd_kernel``).
-    Returns (dq, dk, dv) in the input dtypes."""
+def _bwd_plain(q, k, v, o, do, lse, key_mask, keep, rate: float, scale: float):
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     if key_mask is not None:
         s = torch.where(key_mask[:, None, :], s, NEG_INF)
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(do.float(), v.float().transpose(1, 2))
     pw = p
-    if rate > 0.0:
-        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+    if keep is not None:
         inv = 1.0 / (1.0 - rate)
         dp = torch.where(keep, dp, 0.0) * inv
         pw = torch.where(keep, p, 0.0) * inv
@@ -156,6 +182,28 @@ def flash_train_bwd_reference(q, k, v, o, do, lse, key_mask, seed: int, rate: fl
     dq = torch.matmul(ds.float(), k.float()).to(q.dtype)
     dk = torch.matmul(ds.float().transpose(1, 2), q.float()).to(k.dtype)
     return dq, dk, dv
+
+
+def _keep_or_none(seed: int, q, k, rate: float):
+    if rate <= 0.0:
+        return None
+    return keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], rate, q.device)
+
+
+def flash_train_fwd_reference(q, k, v, key_mask, seed: int, rate: float,
+                              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward on folded rows (the math of the Pallas ``_fwd_kernel``):
+    q [B, Lq, dh], k/v [B, Lk, dh], key_mask [B, Lk] bool or None.
+    Returns (out [B, Lq, dh] in q's dtype, lse [B, Lq] f32)."""
+    return _fwd_plain(q, k, v, key_mask, _keep_or_none(seed, q, k, rate), rate, scale)
+
+
+def flash_train_bwd_reference(q, k, v, o, do, lse, key_mask, seed: int, rate: float,
+                              scale: float):
+    """Plain backward on folded rows (the math of the Pallas ``_bwd_kernel``).
+    Returns (dq, dk, dv) in the input dtypes."""
+    return _bwd_plain(q, k, v, o, do, lse, key_mask, _keep_or_none(seed, q, k, rate), rate,
+                      scale)
 
 
 def fold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -200,49 +248,65 @@ def _device_of(q: torch.Tensor) -> str:
 
 def flash_train_fwd(q, k, v, mask, seed: int, rate: float, scale: float, heads: int):
     """Forward with heads packed: q [W, Lq, H*dh], k/v [W, Lk, H*dh], mask
-    [W, Lk] bool or None -> (out [W, Lq, H*dh], lse [W*H, Lq] f32). Launches
-    the kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    [W, Lk] bool or None -> (out [W, Lq, H*dh], lse [W*H, Lq] f32, keep bits
+    [W*H, Lq, ceil(Lk/32)] int32, None at rate 0). Launches the kernel for
+    CUDA tensors, runs the plain version for CPU tensors; both return the
+    keep mask they drew as bits, for :func:`flash_train_bwd`."""
     if _device_of(q) == "cpu":
         maskf = None if mask is None else mask.repeat_interleave(heads, dim=0)
-        o, lse = flash_train_fwd_reference(fold_heads(q, heads), fold_heads(k, heads),
-                                           fold_heads(v, heads), maskf, seed, rate, scale)
-        return unfold_heads(o, heads), lse
+        qf, kf = fold_heads(q, heads), fold_heads(k, heads)
+        keep = _keep_or_none(seed, qf, kf, rate)
+        o, lse = _fwd_plain(qf, kf, fold_heads(v, heads), maskf, keep, rate, scale)
+        return unfold_heads(o, heads), lse, None if keep is None else pack_keep_bits(keep)
     _check_cuda(q, k, v, mask, heads)
     W, Lq, _ = q.shape
+    Lk = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((W * heads, Lq), dtype=torch.float32, device=q.device)
     mask_u8, seed32, thresh, drop, inv = _kernel_args(mask, seed, rate)
+    bits = None
+    if drop:
+        bits = torch.empty((W * heads, Lq, (Lk + 31) // 32), dtype=torch.int32, device=q.device)
     build.check(build.load_library().vgqa_flash_train_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        build.ptr(mask_u8), W, Lq, k.shape[1], heads, float(scale), seed32,
+        build.ptr(bits), build.ptr(mask_u8), W, Lq, Lk, heads, float(scale), seed32,
         thresh, drop, inv, build.stream_handle(q.device)), "flash_mha_train forward")
     flash_mha_train.fwd_launches += 1
-    return o, lse
+    return o, lse, bits
 
 
-def flash_train_bwd(q, k, v, o, do, lse, mask, seed: int, rate: float, scale: float,
+def flash_train_bwd(q, k, v, o, do, lse, keep_bits, mask, rate: float, scale: float,
                     heads: int):
     """Backward of :func:`flash_train_fwd` -> (dq, dk, dv) in the packed
-    layout and the input dtypes."""
+    layout and the input dtypes. ``keep_bits`` is the forward's (None at
+    rate 0); the kernel and the plain version both read it and draw nothing."""
     do = do.to(q.dtype)
+    W, Lq, _ = q.shape
+    Lk = k.shape[1]
+    if (rate > 0.0) != (keep_bits is not None) or (keep_bits is not None and (
+            tuple(keep_bits.shape) != (W * heads, Lq, (Lk + 31) // 32)
+            or keep_bits.dtype != torch.int32)):
+        raise ValueError("flash_mha_train backward takes the forward's keep bits "
+                         f"[{W * heads}, {Lq}, {(Lk + 31) // 32}] int32 at rate > 0, "
+                         "None at rate 0")
     if _device_of(q) == "cpu":
         maskf = None if mask is None else mask.repeat_interleave(heads, dim=0)
-        grads = flash_train_bwd_reference(
+        keep = None if keep_bits is None else unpack_keep_bits(keep_bits, Lk)
+        grads = _bwd_plain(
             fold_heads(q, heads), fold_heads(k, heads), fold_heads(v, heads),
-            fold_heads(o, heads), fold_heads(do, heads), lse, maskf, seed, rate, scale)
+            fold_heads(o, heads), fold_heads(do, heads), lse, maskf, keep, rate, scale)
         return tuple(unfold_heads(g, heads) for g in grads)
     _check_cuda(q, k, v, mask, heads)
-    W, Lq, _ = q.shape
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((W * heads, Lq), dtype=torch.float32, device=q.device)
-    mask_u8, seed32, thresh, drop, inv = _kernel_args(mask, seed, rate)
+    mask_u8, _, _, drop, inv = _kernel_args(mask, 0, rate)
+    bits = keep_bits.contiguous() if drop else None
     build.check(build.load_library().vgqa_flash_train_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.contiguous().data_ptr(), delta.data_ptr(), build.ptr(mask_u8), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), W, Lq, k.shape[1], heads, float(scale), seed32,
-        thresh, drop, inv, build.stream_handle(q.device)), "flash_mha_train backward")
+        lse.contiguous().data_ptr(), build.ptr(bits), build.ptr(mask_u8), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), W, Lq, Lk, heads, float(scale), drop, inv,
+        build.stream_handle(q.device)), "flash_mha_train backward")
     flash_mha_train.bwd_launches += 1
     return dq, dk, dv
 
@@ -252,15 +316,15 @@ class _FlashTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, rate, scale, heads):
-        o, lse = flash_train_fwd(q, k, v, mask, seed, rate, scale, heads)
-        ctx.save_for_backward(q, k, v, o, lse, mask)
-        ctx.args = (seed, rate, scale, heads)
+        o, lse, bits = flash_train_fwd(q, k, v, mask, seed, rate, scale, heads)
+        ctx.save_for_backward(q, k, v, o, lse, mask, bits)
+        ctx.args = (rate, scale, heads)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, mask = ctx.saved_tensors
-        dq, dk, dv = flash_train_bwd(q, k, v, o, do, lse, mask, *ctx.args)
+        q, k, v, o, lse, mask, bits = ctx.saved_tensors
+        dq, dk, dv = flash_train_bwd(q, k, v, o, do, lse, bits, mask, *ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
