@@ -22,6 +22,12 @@
    against the plain mask packed, two backward runs bit-equal, the device
    kernels per call (profiler), the exponential floor beside the bound, and
    SDPA's forward and backward timed apart at the row's dropout rate.
+   Then the float32 forms at the f32 train step's shapes, against their f32
+   plain versions (fails above 1e-4 of max |ref|): K1 at the 8 block shapes
+   of a 64f@420 step (B = 1, gates), K1' on the same windows (and against K1),
+   K2 at S = 418, K3 forward and backward at [512, 418, 32], rates 0 and 0.1
+   (keep bits equal to the bf16 kernel's); CUDA-event and device times, and
+   bounds at the FFMA rate (67 TFLOP/s).
 4. Serves the full-width default grounding model (ResNet-101, Video Swin-T,
    RoBERTa-base, 6-layer encoder, 6+6 decoders) with random weights from
    seed 0 in bf16: one warm-up request, then three pipelined 128-frame
@@ -46,13 +52,19 @@
    time in the profiled step. Then the same checked steps at the production
    resolution, 64 frames x 420 px (K3 at [512, 418, 32], rate 0.1), with
    three profiled steps (K3's device time, the median step; busy share).
-   Then two bf16
+   Then configs/grounding_vidstg.yaml as the file leaves it (TPU.TRAIN_DTYPE
+   float32, 64f@420, V = 1, frozen tower, its checkpoints not loaded),
+   read by the port's merge_from_file: a warm-up and two checked steps
+   (K1 x12, K3 6 + 6 per step, frozen leaves unchanged, finite loss), one
+   profiled step (K1 / K3 device ms; fails if a bf16 kernel ran or an f32
+   one did not). Then two bf16
    steps with a trainable tower (MODEL.VIDEO_SWIN.FREEZE False, the module
    route under autograd): ms/step, peak memory, finite loss, the Swin
    parameters changed, and K1 / K1' launched 0 times.
 6. Checks the QA kernels against their plain versions at the shapes of the
    QA path: K4 flash_mha at [128, 1025, 64] (8 tiles x 16 heads, one ViT
-   call), unmasked and with a key mask; K5 flash_gqa_causal at H 32 / Hkv 8
+   call), unmasked and with a key mask, with its device time and SDPA's
+   (profiler) beside the bound and the exponential floor; K5 flash_gqa_causal at H 32 / Hkv 8
    / dh 128, Lq 1024, S 9216, length 8700, checked at q_offset 0 and 8192
    and timed at all 9 chunk offsets of a 32-frame prefill; K6 int4_matmul
    at the four projection shapes and M = 1, 2, 64, its device time for
@@ -96,6 +108,8 @@ REL_TOL = 3e-2      # bf16 kernel vs f32 plain version, relative to max |ref|
 WARMUP, REPS = 2, 5
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PEAK_F32 = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (FFMA)
+F32_TOL = 1e-4      # f32 kernel vs f32 plain version, relative to max |ref|
 # H100 SXM exponentials per second: 16 per SM per clock (the SFUs) x 132 SMs
 # x 1.98 GHz boost; not part of the bound (its definition counts tensor-core
 # operations and bytes), printed beside it for K3
@@ -126,9 +140,10 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max()), float((out - ref).abs().max())
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms on an H100 SXM, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(least ms on an H100 SXM, "operations" or "bytes"); ``peak`` the
+    operations' rate for their type (PEAK_F32 for the FFMA kernels)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -179,9 +194,9 @@ K1_SERVE_CASES = [
 K1_TRAIN_CASES = K1_SERVE_CASES[:8]
 
 
-def _swin_case(dev, g, dims, C, heads, shift, batch):
-    """Random bf16 inputs of one K1 / K1' block shape: (window, shift,
-    padded dims, N, weights, canvas, bias, region, valid)."""
+def _swin_case(dev, g, dims, C, heads, shift, batch, dtype=torch.bfloat16):
+    """Random inputs (bf16, or ``dtype``) of one K1 / K1' block shape:
+    (window, shift, padded dims, N, weights, canvas, bias, region, valid)."""
     from vgqa_tpu_torch.models.video_swin import (
         _adjust_window, _region_partition, _valid_partition)
 
@@ -190,7 +205,7 @@ def _swin_case(dev, g, dims, C, heads, shift, batch):
     N = window[0] * window[1] * window[2]
 
     def rnd(*s, sc=1.0):
-        return (sc * torch.randn(*s, generator=g, device=dev)).bfloat16()
+        return (sc * torch.randn(*s, generator=g, device=dev)).to(dtype)
 
     ws = [1 + rnd(C, sc=0.1), rnd(C, sc=0.1), rnd(C, 3 * C, sc=C ** -0.5),
           rnd(3 * C, sc=0.1), rnd(C, C, sc=C ** -0.5), rnd(C, sc=0.1),
@@ -293,20 +308,58 @@ def check_swin_fused(dev, g, cases, batch):
 K3_NAMES = ("attn_fwd_kernel<32", "flash_bwd_kernel")   # K3's forward and backward
 
 
-def device_kernels(fn, calls=10):
+# every profiler window that was taken again, with the evidence that showed
+# it short; printed together at the end of the run
+RETAKEN = []
+
+
+def device_kernels(fn, calls=10, names=K3_NAMES, counter=None):
     """Under the profiler, ``calls`` calls of ``fn``: (device kernels per
-    call, K3's kernels per call, K3's device ms per call, device ms of all
-    kernels per call)."""
+    call, kernels per call whose name contains one of ``names`` (K3's by
+    default), their device ms per call, device ms of all kernels per
+    call).
+
+    The card machine's profiler has reported fewer device kernels than
+    were launched. So each window is also timed by CUDA events and, with
+    ``counter`` (a function that reads the wrapper's launch count), the
+    wrapper's launches in it are read. A window whose named kernels fall
+    short of those launches, or whose event count is not a whole multiple
+    of the calls, goes into ``RETAKEN`` with that evidence and is taken
+    again, up to five windows in all. The first whole window is kept (the
+    window after an empty one has held more kernels than its calls
+    launch), else the fullest. A kernel launched more
+    than once per call still shows as such."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    events = []
+    for attempt in range(5):
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    k3 = [e for e in events if any(k in e.name for k in K3_NAMES)]
+        before = counter() if counter else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        launched = counter() - before if counter else None
+        got = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        named = sum(any(k in e.name for k in names) for e in got)
+        short = (not got or len(got) % calls != 0
+                 or (launched is not None and named < launched))
+        if short:
+            RETAKEN.append(
+                f"window {attempt + 1} of {fn.__qualname__}: profiler {len(got)} device "
+                f"kernels, {named} named {names[0]}.., for {calls} calls; wrapper launches "
+                f"{launched}; CUDA events {start.elapsed_time(end):.4f} ms over the window")
+            print("profiler window short: " + RETAKEN[-1], flush=True)
+        if not short:
+            events = got
+            break
+        if len(got) > len(events):
+            events = got
+    k3 = [e for e in events if any(k in e.name for k in names)]
 
     def ms(es):
         return sum(e.time_range.end - e.time_range.start for e in es) / calls / 1e3
@@ -316,7 +369,7 @@ def device_kernels(fn, calls=10):
 
 def check_flash_train(dev, g):
     from vgqa_tpu_torch.ops.kernels.flash_train import (
-        flash_train_bwd, flash_train_bwd_reference, flash_train_fwd,
+        flash_mha_train, flash_train_bwd, flash_train_bwd_reference, flash_train_fwd,
         flash_train_fwd_reference, fold_heads, keep_mask, pack_keep_bits)
 
     rows = []
@@ -349,8 +402,11 @@ def check_flash_train(dev, g):
                 bits_equal = bool(torch.equal(bits, pack_keep_bits(
                     keep_mask(12345, W * H, L, L, rate, dev))))
             del grads, again, r_grads, r_out, r_lse
-            fwd_n, fwd_k3, fwd_dev, _ = device_kernels(lambda: flash_train_fwd(q, k, v, *args))
-            bwd_n, bwd_k3, bwd_dev, _ = device_kernels(lambda: flash_train_bwd(*bwd_args))
+            fwd_n, fwd_k3, fwd_dev, _ = device_kernels(
+                lambda: flash_train_fwd(q, k, v, *args),
+                counter=lambda: flash_mha_train.fwd_launches)
+            bwd_n, bwd_k3, bwd_dev, _ = device_kernels(
+                lambda: flash_train_bwd(*bwd_args), counter=lambda: flash_mha_train.bwd_launches)
             launches = {"fwd": (fwd_n, fwd_k3), "bwd": (bwd_n, bwd_k3)}
             fwd_ms = cuda_ms(lambda: flash_train_fwd(q, k, v, *args))
             bwd_ms = cuda_ms(lambda: flash_train_bwd(*bwd_args))
@@ -423,9 +479,15 @@ def check_flash_train(dev, g):
     return rows
 
 
+K4_NAMES = ("flash_mha_sm90_kernel",)      # K4's device kernel (both variants)
+
+
 def check_flash_mha(dev, g):
     """K4 at one InternViT call: 8 tiles x 16 heads, L = 1025, dh = 64, q/k/v
-    as slices of the fused qkv projection."""
+    as slices of the fused qkv projection; maskless and masked. Times: CUDA
+    events over back-to-back calls, and device time per call (profiler) for
+    K4 and for SDPA in the same process; beside the bound, the exponential
+    floor (one ex2 per logit on the SFUs)."""
     from vgqa_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_reference
 
     rows = []
@@ -433,6 +495,7 @@ def check_flash_mha(dev, g):
     qkv = torch.randn(T, L, 3 * H * D, generator=g, device=dev).bfloat16()
     q, k, v = qkv.split(H * D, dim=-1)
     f32 = [t.float() for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for masked in (False, True):
         mask = None
         if masked:
@@ -445,21 +508,35 @@ def check_flash_mha(dev, g):
         del out, ref
         ms = cuda_ms(lambda: flash_mha(q, k, v, H, key_mask=mask))
         plain = cuda_ms(lambda: flash_mha_reference(*f32, H, key_mask=mask))
+        n_dev, n_k4, dev_ms = device_kernels(lambda: flash_mha(q, k, v, H, key_mask=mask),
+                                             names=K4_NAMES,
+                                             counter=lambda: flash_mha.launches)[:3]
 
         def heads(t):
             return t.reshape(T, L, H, D).transpose(1, 2)
 
         am = None if mask is None else mask[:, None, None, :]
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), attn_mask=am))
+
+        def library():
+            return sdpa(heads(q), heads(k), heads(v), attn_mask=am)
+
+        lib = cuda_ms(library)
+        lib_dev = device_kernels(library)[3]
         b_ms, b_by = bound(4.0 * T * H * L * L * D, 4 * T * L * H * D * 2 + T * L * int(masked))
+        exp_floor = 1e3 * T * H * L * L / EXP_PER_S
         rows.append({"masked": masked, "rel_err": rel, "max_abs_err": mae, "ms": ms,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+                     "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib,
+                     "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": b_by,
+                     "exp_floor_ms": exp_floor, "kernels_per_call": (n_dev, n_k4)})
         print(f"K4 flash_mha [128, 1025, 64] masked={masked}: rel_err {rel:.3e} max_abs_err "
-              f"{mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  sdpa {lib:.3f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"{mae:.3e}  kernel {ms:.4f} ms (events), device {dev_ms:.4f} ms per call "
+              f"(profiler; {n_dev:.0f} device kernels, {n_k4:.0f} K4)  plain(f32) {plain:.3f} ms"
+              f"  sdpa {lib:.4f} ms (events), device {lib_dev:.4f} ms  bound {b_ms:.4f} ms "
+              f"({b_by}), exp floor {exp_floor:.4f} ms")
         if not rel < REL_TOL:
             raise AssertionError(f"flash_mha masked={masked}: rel_err {rel} >= {REL_TOL}")
+        if n_k4 != 1:
+            raise AssertionError(f"flash_mha masked={masked}: {n_k4} K4 kernels per call")
     return rows
 
 
@@ -838,19 +915,28 @@ def timed(fn, reps=3):
 
 
 def profile_step(step):
-    """Run ``step()`` once under torch.profiler; returns (wall ms, device
-    busy ms as the union of kernel intervals, kernel launches, (name, device
-    us) of every kernel name by time)."""
+    """Run ``step()`` once under torch.profiler (again, up to three times in
+    all, when the window held no device event: it goes into ``RETAKEN``
+    beside the wrappers' launches in it); returns (wall ms, device busy ms
+    as the union of kernel intervals, kernel launches, (name, device us) of
+    every kernel name by time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    for attempt in range(3):
+        before = sum(read_launches().values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+        RETAKEN.append(f"profiled step, window {attempt + 1}: no device event; wrapper "
+                       f"launches {sum(read_launches().values()) - before}; wall {wall:.1f} ms")
+        print("profiler window short: " + RETAKEN[-1], flush=True)
     busy, end = 0.0, -1.0
     for s, e in spans:
         if e > end:
@@ -864,18 +950,19 @@ def profile_step(step):
     return wall, busy / 1e3, len(spans), top
 
 
-def train_steps(dev, card, res: int):
-    """The full-width default model with TPU.TRAIN_DTYPE bfloat16 at 64
-    frames x ``res`` px, V = 1, random weights from seed 0, on the synthetic
-    batch: one warm-up step, then three timed steps (CUDA events, peak
-    memory) with the launch counts set to 0 just before and read just after;
-    checks a finite loss, frozen parameters bit-unchanged, trainable ones
-    changed, the EMA moved, and K1 x12, K3 forward x6 and backward x6
-    launches per step."""
+def train_steps(dev, card, res: int, cfg=None, steps: int = 3):
+    """The full-width default model with TPU.TRAIN_DTYPE bfloat16 (or the
+    given ``cfg``) at 64 frames x ``res`` px, V = 1, random weights from
+    seed 0, on the synthetic batch: one warm-up step, then ``steps`` timed
+    steps (CUDA events, peak memory) with the launch counts set to 0 just
+    before and read just after; checks a finite loss, frozen parameters
+    bit-unchanged, trainable ones changed, the EMA moved, and K1 x12, K3
+    forward x6 and backward x6 launches per step."""
     from vgqa_tpu_torch.data.synthetic_batch import synthetic_batch
     from vgqa_tpu_torch.training.trainer import Trainer, batch_to
 
-    cfg = full_cfg(res, **{"TPU.TRAIN_DTYPE": "bfloat16"})
+    if cfg is None:
+        cfg = full_cfg(res, **{"TPU.TRAIN_DTYPE": "bfloat16"})
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev, seed=0)
     trainer.setup(max_iter=1000)
@@ -903,24 +990,26 @@ def train_steps(dev, card, res: int):
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0 = time.perf_counter()
     start.record()
-    metrics = [step_fn(state, *args, seed=0) for _ in range(3)]
+    metrics = [step_fn(state, *args, seed=0) for _ in range(steps)]
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = read_launches()
-    ms_step = start.elapsed_time(end) / 3
+    ms_step = start.elapsed_time(end) / steps
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x["loss"]) for x in metrics]
-    print(f"train step 64f@{res} bf16 V=1: {ms_step:.1f} ms/step (CUDA events, 3 steps; "
-          f"host {1e3 * host_s / 3:.1f} ms/step), peak memory {peak_gb:.2f} GiB  [{card}]")
+    print(f"train step 64f@{res} {cfg.TPU.TRAIN_DTYPE} V=1: {ms_step:.1f} ms/step (CUDA events, "
+          f"{steps} steps; host {1e3 * host_s / steps:.1f} ms/step), peak memory "
+          f"{peak_gb:.2f} GiB  [{card}]")
     print(f"losses {losses}, grad norms {[round(float(x['grad_norm']), 4) for x in metrics]}")
     print("loss terms of the last step: " + json.dumps(
         {k: round(float(v), 5) for k, v in metrics[-1].items() if not k[-1].isdigit()}))
-    print(f"launches over 3 steps: {launches}")
+    print(f"launches over {steps} steps: {launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss {losses}")
-    if launches != {"swin_block_canvas": 36, "swin_block_fused": 0, "window_attention": 0,
-                    "flash_mha_train.fwd": 18, "flash_mha_train.bwd": 18,
+    if launches != {"swin_block_canvas": 12 * steps, "swin_block_fused": 0,
+                    "window_attention": 0, "flash_mha_train.fwd": 6 * steps,
+                    "flash_mha_train.bwd": 6 * steps,
                     "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}:
         raise AssertionError(f"expected 12 / 6 / 6 launches per step, got {launches}")
     frozen_changed = [n for n, p in model.named_parameters()
@@ -1116,6 +1205,244 @@ def train_trainable(dev, card):
     return {"step_ms": step_ms, "peak_gb": peak, "losses": losses, "launches": launches}
 
 
+# (dims D, H, W, C, heads, shift, calls per step): the 12 K1 blocks of the
+# frozen Swin-T tower in one 64f@420 train step (4x4 patches: 105, then
+# patch merging to 53, 27, 14)
+K1_420_CASES = [
+    ((64, 105, 105), 96, 3, (0, 0, 0), 1), ((64, 105, 105), 96, 3, (4, 3, 3), 1),
+    ((64, 53, 53), 192, 6, (0, 0, 0), 1), ((64, 53, 53), 192, 6, (4, 3, 3), 1),
+    ((64, 27, 27), 384, 12, (0, 0, 0), 3), ((64, 27, 27), 384, 12, (4, 3, 3), 3),
+    ((64, 14, 14), 768, 24, (0, 0, 0), 1), ((64, 14, 14), 768, 24, (4, 3, 3), 1),
+]
+F32_K1_NAMES = ("ln_rows_kernel<float>", "gemm_f32_kernel", "window_attn_f32_kernel")
+F32_K3_NAMES = ("train_fwd_f32_kernel", "flash_bwd_f32_kernel")
+
+
+def check_f32_kernels(dev, g):
+    """The float32 forms at the f32 train path's shapes, against their f32
+    plain versions (fails above F32_TOL of max |ref|): K1 at the 8 block
+    shapes of a 64f@420 step (B = 1, DropPath gates with zeros), K1' on the
+    same windows (and against K1 on the canvas), K2 at S = 418, K3 forward
+    and backward at [512, 418, 32], rates 0 and 0.1 (keep bits equal to the
+    bf16 kernel's and to the plain mask packed). Times by CUDA events and by
+    device time (profiler); bounds at the FFMA rate."""
+    from vgqa_tpu_torch.models.video_swin import window_partition, window_reverse
+    from vgqa_tpu_torch.ops.kernels.flash_train import (
+        flash_mha_train, flash_train_bwd, flash_train_bwd_reference, flash_train_fwd,
+        flash_train_fwd_reference, fold_heads, keep_mask, pack_keep_bits)
+    from vgqa_tpu_torch.ops.kernels.swin_block import (
+        swin_block_canvas, swin_block_canvas_reference, swin_block_fused,
+        swin_block_fused_reference)
+    from vgqa_tpu_torch.ops.kernels.window_attention import (
+        window_attention, window_attention_reference)
+
+    f32 = torch.float32
+    k1_rows = []
+    for i, (dims, C, heads, shift, per_step) in enumerate(K1_420_CASES):
+        window, shift, padded, N, ws, canvas, bias, region, valid = _swin_case(
+            dev, g, dims, C, heads, shift, 1, dtype=f32)
+        gates = torch.tensor([[0.0, 1.25]] if i % 2 else [[1.1111, 0.0]], device=dev)
+        args = (canvas, *ws, bias, heads, window, shift)
+        kw = {"region": region, "valid": valid, "gates": gates}
+        out = swin_block_canvas(*args, **kw)
+        ref = swin_block_canvas_reference(*args, **kw)
+        rolled = torch.roll(canvas, shifts=tuple(-x for x in shift), dims=(1, 2, 3))
+        windows = window_partition(rolled, window).contiguous()
+        del rolled
+        fkw = {"region": region, "valid": valid}
+        fout = swin_block_fused(windows, *ws, bias, heads, **fkw)
+        fref = swin_block_fused_reference(windows, *ws, bias, heads, **fkw)
+        k1_plain = swin_block_canvas(*args, **fkw)          # K1 without gates
+        torch.cuda.synchronize()
+        rel, mae = rel_err(out, ref)
+        frel, fmae = rel_err(fout, fref)
+        vs_k1 = rel_err(window_reverse(fout, window, 1, *padded), k1_plain)[1]
+        del out, ref, fout, fref, k1_plain
+        ms = cuda_ms(lambda: swin_block_canvas(*args, **kw))
+        dev_ms = device_kernels(lambda: swin_block_canvas(*args, **kw), calls=3,
+                                names=F32_K1_NAMES)[2]
+        fms = cuda_ms(lambda: swin_block_fused(windows, *ws, bias, heads, **fkw))
+        plain = cuda_ms(lambda: swin_block_canvas_reference(*args, **kw), reps=2)
+        tokens = padded[0] * padded[1] * padded[2]
+        b_ms, b_by = bound(tokens * (24.0 * C * C + 4.0 * N * C),
+                           2 * tokens * C * 4 + 12 * C * C * 4 + heads * N * N * 4, PEAK_F32)
+        k1_rows.append({"dims": dims, "C": C, "shift": shift, "per_step": per_step,
+                        "rel_err": rel, "max_abs_err": mae, "fused_rel_err": frel,
+                        "fused_max_abs_err": fmae, "fused_vs_k1_max_abs": vs_k1, "ms": ms,
+                        "device_ms": dev_ms, "fused_ms": fms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by})
+        print(f"K1 f32 swin_block_canvas B=1 {dims}->{padded} C={C} h={heads} roll={shift}: "
+              f"rel_err {rel:.3e}  K1' rel_err {frel:.3e} (vs K1 max abs {vs_k1:.3e})  kernel "
+              f"{ms:.3f} ms (device {dev_ms:.3f})  K1' {fms:.3f} ms  plain(f32) {plain:.3f} ms  "
+              f"bound {b_ms:.3f} ms ({b_by}, FFMA)")
+        if not (rel < F32_TOL and frel < F32_TOL and vs_k1 < F32_TOL):
+            raise AssertionError(f"f32 K1/K1' {dims} C={C}: rel_err {rel}, {frel}, vs K1 {vs_k1}")
+        del windows, canvas, ws
+    torch.cuda.empty_cache()
+
+    # K2 at the 420 px encoder rows
+    W, S, C, H = 128, 418, 256, 8
+    q, k, v = (torch.randn(W, S, C, generator=g, device=dev) for _ in range(3))
+    kv = (torch.rand(W, S, generator=g, device=dev) > 0.1).float()
+    kv[:, 0] = 1.0
+    out = window_attention(q, k, v, key_valid=kv, num_heads=H)
+    ref = window_attention_reference(q, k, v, key_valid=kv, num_heads=H)
+    torch.cuda.synchronize()
+    rel, mae = rel_err(out, ref)
+    ms = cuda_ms(lambda: window_attention(q, k, v, key_valid=kv, num_heads=H))
+    dev_ms = device_kernels(lambda: window_attention(q, k, v, key_valid=kv, num_heads=H),
+                            names=("window_attn_f32_kernel",))[2]
+    plain = cuda_ms(lambda: window_attention_reference(q, k, v, key_valid=kv, num_heads=H))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, -1).transpose(1, 2)
+
+    am = (kv > 0)[:, None, None, :]
+
+    def library():                     # SDPA on the same f32 operands (the port never calls it)
+        return sdpa(heads(q), heads(k), heads(v), attn_mask=am)
+
+    lib = cuda_ms(library)
+    lib_dev = device_kernels(library)[3]
+    b_ms, b_by = bound(4.0 * W * S * S * C, 4 * W * S * C * 4 + W * S * 4, PEAK_F32)
+    k2_row = {"S": S, "rel_err": rel, "max_abs_err": mae, "ms": ms, "device_ms": dev_ms,
+              "plain_ms": plain, "library_ms": lib, "library_device_ms": lib_dev,
+              "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K2 f32 window_attention W=128 S=418 C=256 h=8: rel_err {rel:.3e}  kernel {ms:.4f} "
+          f"ms (device {dev_ms:.4f})  plain(f32) {plain:.3f} ms  sdpa(f32) {lib:.4f} ms (device "
+          f"{lib_dev:.4f})  bound {b_ms:.4f} ms ({b_by}, FFMA)")
+    if not rel < F32_TOL:
+        raise AssertionError(f"f32 window_attention: rel_err {rel}")
+    del q, k, v, out, ref
+
+    # K3 at [512, 418, 32]
+    k3_rows = []
+    W, L, H, D = 64, 418, 8, 32
+    scale = D ** -0.5
+    q, k, v, do = (torch.randn(W, L, H * D, generator=g, device=dev) for _ in range(4))
+    mask = torch.rand(W, L, generator=g, device=dev) > 0.1
+    mask[:, 0] = True
+    fq, fk, fv, fdo = (fold_heads(t, H) for t in (q, k, v, do))
+    maskf = mask.repeat_interleave(H, dim=0)
+    for rate in (0.0, 0.1):
+        args = (mask, 4242, rate, scale, H)
+        out, lse, bits = flash_train_fwd(q, k, v, *args)
+        grads = flash_train_bwd(q, k, v, out, do, lse, bits, mask, rate, scale, H)
+        r_out, r_lse = flash_train_fwd_reference(fq, fk, fv, maskf, 4242, rate, scale)
+        r_grads = flash_train_bwd_reference(fq, fk, fv, r_out, fdo, r_lse, maskf, 4242, rate,
+                                            scale)
+        errs = {"out": rel_err(fold_heads(out, H), r_out)}
+        errs.update({n: rel_err(fold_heads(a, H), b)
+                     for n, a, b in zip(("dq", "dk", "dv"), grads, r_grads)})
+        lse_err = float((lse - r_lse).abs().max())
+        bits_equal = None
+        if rate > 0:
+            bf_bits = flash_train_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), *args)[2]
+            bits_equal = bool(torch.equal(bits, bf_bits)) and bool(torch.equal(
+                bits, pack_keep_bits(keep_mask(4242, W * H, L, L, rate, dev))))
+        del grads, r_grads, r_out, r_lse
+        bwd_args = (q, k, v, out, do, lse, bits, mask, rate, scale, H)
+        fwd_ms = cuda_ms(lambda: flash_train_fwd(q, k, v, *args))
+        bwd_ms = cuda_ms(lambda: flash_train_bwd(*bwd_args))
+        fwd_n, fwd_k, fwd_dev = device_kernels(lambda: flash_train_fwd(q, k, v, *args),
+                                               names=F32_K3_NAMES,
+                                               counter=lambda: flash_mha_train.fwd_launches)[:3]
+        bwd_n, bwd_k, bwd_dev = device_kernels(lambda: flash_train_bwd(*bwd_args),
+                                               names=F32_K3_NAMES,
+                                               counter=lambda: flash_mha_train.bwd_launches)[:3]
+        # SDPA on the same f32 operands: forward + backward by CUDA events at
+        # rate 0, forward and backward apart by device time at this rate
+        qh, kh, vh = (heads(t).detach().requires_grad_() for t in (q, k, v))
+        doh, am = heads(do), mask[:, None, None, :]
+        lib_ms = None
+        if rate == 0.0:
+            def library():
+                torch.autograd.grad(sdpa(qh, kh, vh, attn_mask=am), (qh, kh, vh), doh)
+
+            lib_ms = cuda_ms(library)
+        lib_fwd = device_kernels(lambda: sdpa(qh, kh, vh, attn_mask=am, dropout_p=rate))[3]
+        o_lib = sdpa(qh, kh, vh, attn_mask=am, dropout_p=rate)
+        lib_bwd = device_kernels(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), doh,
+                                                             retain_graph=True))[3]
+        del o_lib, qh, kh, vh
+        B, elems = W * H, W * H * L * D
+        f_ms, f_by = bound(4.0 * B * L * L * D, 4 * elems * 4 + B * L * 4 + W * L, PEAK_F32)
+        b_ms, b_by = bound(10.0 * B * L * L * D, 8 * elems * 4 + B * L * 4 + W * L, PEAK_F32)
+        row = {"L": L, "rate": rate, "max_rel_err": max(e[0] for e in errs.values()),
+               "max_abs_err": max(e[1] for e in errs.values()), "lse_abs_err": lse_err,
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_device_ms": fwd_dev,
+               "bwd_device_ms": bwd_dev, "fwd_bound_ms": f_ms, "bwd_bound_ms": b_ms,
+               "library_ms": lib_ms, "library_fwd_device_ms": lib_fwd,
+               "library_bwd_device_ms": lib_bwd,
+               "bound_by": "bytes" if "bytes" in (f_by, b_by) else "operations",
+               "exp_floor_ms": 1e3 * B * L * L / EXP_PER_S,
+               "kernels_per_call": {"fwd": (fwd_n, fwd_k), "bwd": (bwd_n, bwd_k)},
+               "keep_bits_equal_bf16": bits_equal}
+        k3_rows.append(row)
+        print(f"K3 f32 flash_mha_train [512, 418, 32] rate={rate}: rel_err "
+              + " ".join(f"{n} {e[0]:.3e}" for n, e in errs.items())
+              + f"  lse abs {lse_err:.2e}  fwd {fwd_ms:.4f} + bwd {bwd_ms:.4f} ms (events), "
+              f"device {fwd_dev:.4f} + {bwd_dev:.4f} ms  sdpa(f32) fwd+bwd "
+              + ("-" if lib_ms is None else f"{lib_ms:.4f} ms")
+              + f" (events), device {lib_fwd:.4f} + {lib_bwd:.4f} ms at dropout_p={rate}  "
+              f"bound fwd {f_ms:.4f} bwd {b_ms:.4f} ms (FFMA)  kernels per call {row['kernels_per_call']}  keep bits = bf16 kernel's "
+              f"= plain mask packed: {bits_equal}")
+        if not (row["max_rel_err"] < F32_TOL and lse_err < 1e-4):
+            raise AssertionError(f"f32 flash_mha_train rate={rate}: {errs}, lse {lse_err}")
+        if bits_equal is False or fwd_k != 1 or bwd_k != 1:
+            raise AssertionError(f"f32 flash_mha_train rate={rate}: keep bits {bits_equal}, "
+                                 f"kernels {row['kernels_per_call']}")
+        del out, lse, bits
+    del q, k, v, do, fq, fk, fv, fdo
+    torch.cuda.empty_cache()
+    return {"k1": k1_rows, "k2": k2_row, "k3": k3_rows}
+
+
+def train_f32(dev, card):
+    """The production config, configs/grounding_vidstg.yaml, read by the
+    port's merge_from_file as the file leaves it (TPU.TRAIN_DTYPE float32,
+    64 frames at 420 px, V = 1, the frozen tower; its absent checkpoints
+    are not loaded: random weights from seed 0; OUTPUT_DIR emptied, so no
+    checkpoint is read or written): the checked steps of
+    :func:`train_steps` (a warm-up and 2 timed), then one step under the
+    profiler: K1's and K3's device ms, and that their f32 kernels ran and
+    their bf16 ones did not."""
+    import os
+
+    from vgqa_tpu_torch.config import build_default_cfg
+
+    cfg = build_default_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     "grounding_vidstg.yaml"))
+    cfg.OUTPUT_DIR = ""
+    cfg.freeze()
+    got = (cfg.TPU.TRAIN_DTYPE, cfg.INPUT.RESOLUTION, cfg.INPUT.TRAIN_SAMPLE_NUM,
+           cfg.SOLVER.BATCH_SIZE, cfg.MODEL.VIDEO_SWIN.FREEZE, cfg.TPU.USE_PALLAS_ATTENTION)
+    if got != ("float32", 420, 64, 1, True, True):
+        raise AssertionError(f"configs/grounding_vidstg.yaml read as {got}")
+    run = train_steps(dev, card, 420, cfg=cfg, steps=2)
+    state, step_fn, args = run["trainer"].state, run["trainer"].step_fn, run["args"]
+    wall, busy, n_kernels, top = profile_step(lambda: step_fn(state, *args, seed=0))
+    names = [n for n, _ in top]
+    k1_ms = sum(us for n, us in top if any(k in n for k in F32_K1_NAMES)) / 1e3
+    k3_fwd, k3_bwd = (sum(us for n, us in top if k in n) / 1e3 for k in F32_K3_NAMES)
+    print(f"profiled f32 train step 64f@420: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle share {1 - busy / wall:.3f}), {n_kernels} kernel launches; K1 device "
+          f"{k1_ms:.3f} ms (12 calls), K3 device {k3_fwd:.3f} + {k3_bwd:.3f} ms (6 + 6)  [{card}]")
+    for name, us in top[:12]:
+        print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
+    ran = all(any(k in n for n in names) for k in F32_K1_NAMES[1:] + F32_K3_NAMES)
+    bf16_ran = [n for n in names if "gemm_bf16_kernel" in n or "attn_fwd_kernel<32" in n
+                or "flash_bwd_kernel" in n]
+    if not ran or bf16_ran:
+        raise AssertionError(f"f32 step: f32 kernels ran {ran}, bf16 kernels {bf16_ran}")
+    del run["trainer"], state
+    return {"ms_step": run["ms_step"], "peak_gb": run["peak_gb"], "launches": run["launches"],
+            "losses": run["losses"], "k1_device_ms": k1_ms, "k3_device_ms": k3_fwd + k3_bwd,
+            "busy_ms": busy, "wall_ms": wall}
+
+
 def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
     """One kernel-table entry of a QA kernel: ms / plain / bound / library
     summed over ``unit_rows`` (the calls of one unit of work) x ``repeat``."""
@@ -1123,8 +1450,9 @@ def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
         return repeat * sum(r[key] for r in unit_rows)
 
     return {"name": name, "route": "cuda",
-            "source": ("vgqa_tpu_torch/csrc/int4_matmul.cu" if name == "int4_matmul"
-                       else "vgqa_tpu_torch/csrc/flash_attention.cu"),
+            "source": {"int4_matmul": "vgqa_tpu_torch/csrc/int4_matmul.cu",
+                       "flash_mha": "vgqa_tpu_torch/csrc/flash_mha_sm90.cu"}.get(
+                           name, "vgqa_tpu_torch/csrc/flash_attention.cu"),
             "replaces": replaces, "launches": launches[name],
             "launches_by_path": {"serve": 0, "train": 0, "qa": launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in all_rows if r["max_abs_err"] is not None),
@@ -1332,6 +1660,7 @@ def main() -> int:
     k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
     k1f_rows = check_swin_fused(dev, g, K1_SERVE_CASES, batch=2)
     k3_rows = check_flash_train(dev, g)
+    f32_rows = check_f32_kernels(dev, g)
     k4_rows = check_flash_mha(dev, g)
     k5_rows = check_flash_gqa(dev, g)
     k6_rows = check_int4(dev, g)
@@ -1352,6 +1681,9 @@ def main() -> int:
     tr420 = train_420(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    tr32 = train_f32(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     tr_swin = train_trainable(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1367,22 +1699,37 @@ def main() -> int:
     k3_lib = next(r for r in k3_rows if r["L"] == 124 and r["rate"] == 0.0)
     k3_420 = next(r for r in k3_rows if r["L"] == 418 and r["rate"] == 0.1)
     k3_launches = {d: tr["launches"][f"flash_mha_train.{d}"]
-                   + tr420["launches"][f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
+                   + tr420["launches"][f"flash_mha_train.{d}"]
+                   + tr32["launches"][f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
+    f32_k1, f32_k2 = f32_rows["k1"], f32_rows["k2"]
+    f32_k3 = {r["rate"]: r for r in f32_rows["k3"]}
+    k4 = k4_rows[0]
+    f32_k1_row = {
+        "launches_train_f32": tr32["launches"]["swin_block_canvas"],
+        "max_rel_err": max(r["rel_err"] for r in f32_k1),
+        "max_abs_err": max(r["max_abs_err"] for r in f32_k1),
+        "step_ms": sum(r["ms"] * r["per_step"] for r in f32_k1),
+        "step_device_ms": sum(r["device_ms"] * r["per_step"] for r in f32_k1),
+        "step_plain_ms": sum(r["plain_ms"] * r["per_step"] for r in f32_k1),
+        "step_bound_ms": sum(r["bound_ms"] * r["per_step"] for r in f32_k1),
+        "in_step_device_ms": tr32["k1_device_ms"]}
     table = {"kernels": [
         {"name": "swin_block_canvas", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
          "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"]
-         + tr420["launches"]["swin_block_canvas"],
+         + tr420["launches"]["swin_block_canvas"] + tr32["launches"]["swin_block_canvas"],
          "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
                               "train": tr["launches"]["swin_block_canvas"],
-                              "train_420": tr420["launches"]["swin_block_canvas"], "qa": 0},
+                              "train_420": tr420["launches"]["swin_block_canvas"],
+                              "train_f32": tr32["launches"]["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None,
          "train_step_ms": sum(r["ms"] * r["per_fwd"] for r in k1_train_rows),
          "train_step_plain_ms": sum(r["plain_ms"] * r["per_fwd"] for r in k1_train_rows),
-         "train_step_bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1_train_rows)},
+         "train_step_bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1_train_rows),
+         "f32": f32_k1_row},
         {"name": "swin_block_fused", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:212",
@@ -1395,7 +1742,11 @@ def main() -> int:
          "bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1f_rows),
          "bound_by": max(k1f_rows, key=lambda r: r["bound_ms"] * r["per_fwd"])["bound_by"],
          "library_ms": None,
-         "vs_k1_max_abs": max(r["vs_k1_max_abs"] for r in k1f_rows)},
+         "vs_k1_max_abs": max(r["vs_k1_max_abs"] for r in k1f_rows),
+         "f32": {"max_rel_err": max(r["fused_rel_err"] for r in f32_k1),
+                 "max_abs_err": max(r["fused_max_abs_err"] for r in f32_k1),
+                 "vs_k1_max_abs": max(r["fused_vs_k1_max_abs"] for r in f32_k1),
+                 "ms_420_shapes": sum(r["fused_ms"] * r["per_step"] for r in f32_k1)}},
         {"name": "window_attention", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/kernels.cu",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
@@ -1404,7 +1755,8 @@ def main() -> int:
                               "train": tr["launches"]["window_attention"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"]},
+         "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"],
+         "f32": f32_k2},
         {"name": "flash_mha_train", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/flash_attention.cu (forward), "
                    "vgqa_tpu_torch/csrc/flash_train.cu (backward)",
@@ -1414,7 +1766,9 @@ def main() -> int:
                               "train": tr["launches"]["flash_mha_train.fwd"]
                               + tr["launches"]["flash_mha_train.bwd"],
                               "train_420": tr420["launches"]["flash_mha_train.fwd"]
-                              + tr420["launches"]["flash_mha_train.bwd"]},
+                              + tr420["launches"]["flash_mha_train.bwd"],
+                              "train_f32": tr32["launches"]["flash_mha_train.fwd"]
+                              + tr32["launches"]["flash_mha_train.bwd"]},
          "launches_by_direction": k3_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          "ms": 6 * (k3["fwd_ms"] + k3["bwd_ms"]), "plain_ms": 6 * k3["plain_ms"],
@@ -1427,9 +1781,30 @@ def main() -> int:
                                    + k3_lib["library_bwd_device_ms"]),
          "library_dropout_ms": 6 * (k3["library_fwd_device_ms"] + k3["library_bwd_device_ms"]),
          "step_420_device_ms": tr420["k3_device_ms"],
-         "step_420_bound_ms": 6 * (k3_420["fwd_bound_ms"] + k3_420["bwd_bound_ms"])},
-        qa_row("flash_mha", "vgqa_tpu/ops/pallas/flash_attention.py:79", qa_l,
-               k4_rows[:1], qa["per_chat"]["flash_mha"], k4_rows),
+         "step_420_bound_ms": 6 * (k3_420["fwd_bound_ms"] + k3_420["bwd_bound_ms"]),
+         "f32": {"max_rel_err": max(r["max_rel_err"] for r in f32_rows["k3"]),
+                 "max_abs_err": max(r["max_abs_err"] for r in f32_rows["k3"]),
+                 "fwd_ms": f32_k3[0.1]["fwd_ms"], "bwd_ms": f32_k3[0.1]["bwd_ms"],
+                 "fwd_device_ms": f32_k3[0.1]["fwd_device_ms"],
+                 "bwd_device_ms": f32_k3[0.1]["bwd_device_ms"],
+                 "rate0_device_ms": f32_k3[0.0]["fwd_device_ms"]
+                 + f32_k3[0.0]["bwd_device_ms"],
+                 "fwd_bound_ms": f32_k3[0.1]["fwd_bound_ms"],
+                 "bwd_bound_ms": f32_k3[0.1]["bwd_bound_ms"],
+                 "library_ms": f32_k3[0.0]["library_ms"],
+                 "library_device_ms": f32_k3[0.1]["library_fwd_device_ms"]
+                 + f32_k3[0.1]["library_bwd_device_ms"],
+                 "library_rate0_device_ms": f32_k3[0.0]["library_fwd_device_ms"]
+                 + f32_k3[0.0]["library_bwd_device_ms"],
+                 "keep_bits_equal_bf16": f32_k3[0.1]["keep_bits_equal_bf16"],
+                 "in_step_device_ms": tr32["k3_device_ms"]}},
+        dict(qa_row("flash_mha", "vgqa_tpu/ops/pallas/flash_attention.py:79", qa_l,
+                    k4_rows[:1], qa["per_chat"]["flash_mha"], k4_rows),
+             device_ms=qa["per_chat"]["flash_mha"] * k4["device_ms"],
+             library_device_ms=qa["per_chat"]["flash_mha"] * k4["library_device_ms"],
+             exp_floor_ms=qa["per_chat"]["flash_mha"] * k4["exp_floor_ms"],
+             call_device_ms=k4["device_ms"], call_library_device_ms=k4["library_device_ms"],
+             masked_call_device_ms=k4_rows[1]["device_ms"]),
         qa_row("flash_gqa_causal", "vgqa_tpu/ops/pallas/flash_attention.py:242", qa_l,
                k5_rows, 32, k5_rows),
         dict(qa_row("int4_matmul", "vgqa_tpu/ops/pallas/int4_matmul.py:145", qa_l,
@@ -1444,7 +1819,15 @@ def main() -> int:
           "library: SDPA fwd+bwd at rate 0; *_device_ms the same by device time (profiler), "
           "library_dropout_ms SDPA's at dropout_p 0.1; step_420_device_ms K3's device time "
           "in one profiled 64f@420 step, step_420_bound_ms its bound); launches over "
-          "the serving (4 forwards) and training (3 steps at 224 px, 3 at 420 px) runs; train "
+          "the serving (4 forwards) and training (3 steps at 224 px, 3 at 420 px, 2 f32 "
+          "steps of configs/grounding_vidstg.yaml at 64f@420) runs; each \"f32\" entry: the "
+          "float32 form at the f32 step's shapes (K1: the 12 calls of a 64f@420 step, "
+          "in_step_device_ms from the profiled f32 step; K2 one call at S=418; K3 per call "
+          "at [512, 418, 32], rate 0.1, bounds at the FFMA rate; library: SDPA on the "
+          "same f32 operands, K3's library_ms fwd+bwd at rate 0 by events, "
+          "library_device_ms at rate 0.1 by device time); f32 step "
+          f"{tr32['ms_step']:.1f} ms, peak {tr32['peak_gb']:.2f} GiB; K4 device_ms / "
+          "library_device_ms / exp_floor_ms per chat by the profiler; train "
           f"step {tr['ms_step']:.1f} ms, peak {tr['peak_gb']:.2f} GiB; at 64f@420 "
           f"{tr420['ms_step']:.1f} ms, peak {tr420['peak_gb']:.2f} GiB, K3 device "
           f"{tr420['k3_device_ms']:.3f} ms per step; K1' launches over the tower's blocks "
@@ -1461,6 +1844,9 @@ def main() -> int:
           f"decode-step logits {qa['rel_int4_decode']:.3e} (K6); K6 host {k6_host_us:.2f} us "
           f"per call; bf16 GEMMs rounded once: at most "
           f"{100 * max(r['frac_differ'] for r in quant_rows):.4f}% of elements differ  [{card}]")
+    print(f"profiler windows taken again: {len(RETAKEN)}")
+    for line in RETAKEN:
+        print("  " + line)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -267,3 +267,163 @@ def test_int4_matmul_kernel_cuda(cuda, M, K, N, g):
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     assert torch.equal(out, again)
     assert _rel_err(out, ref.float()) < CUDA_REL
+
+
+# ---- the float32 forms of K1 / K1' / K2 / K3 ---------------------------------
+# f32 kernels (FFMA, nothing rounded) against the f32 plain version on the
+# same inputs: only the summation order differs, so 1e-4 of max |ref| fails.
+F32_REL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [124, 392, 418])
+def test_window_attention_kernel_f32_cuda(cuda, S):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(16, S, 256, generator=g, device=cuda) for _ in range(3))
+    kv = (torch.rand(16, S, generator=g, device=cuda) > 0.2).float()
+    kv[:, 0] = 1.0
+    bias = torch.randn(8, S, S, generator=g, device=cuda)
+    region = torch.randint(0, 3, (4, S), generator=g, device=cuda)
+    before = window_attention.launches
+    for kw in ({"key_valid": kv}, {"bias": bias, "region": region, "key_valid": kv}):
+        out = window_attention(q, k, v, num_heads=8, **kw)
+        ref = window_attention_reference(q, k, v, num_heads=8, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32
+        assert _rel_err(out, ref) < F32_REL
+    assert window_attention.launches == before + 2
+
+
+def _swin_f32_case(cuda, shape, heads, shift, padded, seed):
+    D, H, W, C = shape
+    window, shift = tvs._adjust_window((D, H, W), (8, 7, 7), shift)
+    dims_p = tuple(d + (-d) % w for d, w in zip((D, H, W), window))
+    N = window[0] * window[1] * window[2]
+    rng = np.random.RandomState(seed)
+    ws = [torch.from_numpy(w).to(cuda) for w in _block_weights(rng, C)]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    canvas = torch.randn(2, *dims_p, C, generator=g, device=cuda)
+    bias = 0.2 * torch.randn(heads, N, N, generator=g, device=cuda)
+    region = (torch.from_numpy(tvs._region_partition(dims_p, window, shift)).to(cuda)
+              if any(shift) else None)
+    valid = tvs._valid_partition((D, H, W), dims_p, window, shift)
+    assert (valid is not None) == padded
+    valid = None if valid is None else torch.from_numpy(valid).to(cuda)
+    return window, shift, dims_p, ws, canvas, bias, region, valid
+
+
+SWIN_F32_CASES = [
+    ((16, 14, 14, 96), 3, (4, 3, 3), False),
+    ((16, 7, 7, 768), 24, (4, 0, 0), False),
+    ((16, 53, 53, 192), 6, (4, 3, 3), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads,shift,padded", SWIN_F32_CASES)
+def test_swin_block_canvas_kernel_f32_cuda(cuda, shape, heads, shift, padded):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    window, shift, _, ws, canvas, bias, region, valid = _swin_f32_case(
+        cuda, shape, heads, shift, padded, shape[-1] + 2)
+    gates = torch.tensor([[1.0, 1.25], [0.0, 1.0]], device=cuda)
+    before = swin_block_canvas.launches
+    out = swin_block_canvas(canvas, *ws, bias, heads, window, shift,
+                            region=region, valid=valid, gates=gates)
+    ref = swin_block_canvas_reference(canvas, *ws, bias, heads, window, shift,
+                                      region=region, valid=valid, gates=gates)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and swin_block_canvas.launches == before + 1
+    assert _rel_err(out, ref) < F32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads,shift,padded", SWIN_F32_CASES)
+def test_swin_block_fused_kernel_f32_cuda(cuda, shape, heads, shift, padded):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    window, shift, dims_p, ws, canvas, bias, region, valid = _swin_f32_case(
+        cuda, shape, heads, shift, padded, shape[-1] + 3)
+    rolled = torch.roll(canvas, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+    windows = tvs.window_partition(rolled, window)
+    before = swin_block_fused.launches
+    out = swin_block_fused(windows, *ws, bias, heads, region=region, valid=valid)
+    ref = swin_block_fused_reference(windows, *ws, bias, heads, region=region, valid=valid)
+    k1 = swin_block_canvas(canvas, *ws, bias, heads, window, shift, region=region, valid=valid)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and swin_block_fused.launches == before + 1
+    assert _rel_err(out, ref) < F32_REL
+    assert _rel_err(tvs.window_reverse(out, window, 2, *dims_p), k1) < F32_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk", [(124, 124), (418, 418), (70, 130), (1024, 1024)])
+def test_flash_train_kernel_f32_cuda(cuda, Lq, Lk, rate):
+    """K3's float32 forward (out, lse) and backward (dq, dk, dv) against the
+    f32 plain version; at rate 0.1 the forward's keep bits are bit-equal to
+    the bf16 kernel's on the same seed and shape, and to the plain mask
+    packed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(Lq + 3 * Lk)
+    W, H = 16, 8
+    q, do = (torch.randn(W, Lq, H * 32, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(W, Lk, H * 32, generator=g, device=cuda) for _ in range(2))
+    mask = torch.rand(W, Lk, generator=g, device=cuda) > 0.2
+    mask[:, 0] = True
+    mask[1] = False                       # one row of keys fully masked
+    args = (mask, 91, rate, 32 ** -0.5, H)
+    fwd0, bwd0 = flash_mha_train.fwd_launches, flash_mha_train.bwd_launches
+    out, lse, bits = flash_train_fwd(q, k, v, *args)
+    grads = flash_train_bwd(q, k, v, out, do, lse, bits, mask, rate, 32 ** -0.5, H)
+    f32 = [fold_heads(t, H) for t in (q, k, v, do)]
+    maskf = mask.repeat_interleave(H, dim=0)
+    ref_out, ref_lse = flash_train_fwd_reference(*f32[:3], maskf, 91, rate, 32 ** -0.5)
+    ref_grads = flash_train_bwd_reference(*f32[:3], ref_out, f32[3], ref_lse, maskf, 91,
+                                          rate, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and all(t.dtype == torch.float32 for t in grads)
+    assert _rel_err(fold_heads(out, H), ref_out) < F32_REL
+    live = ref_lse > -1e29                # rows with an attended key
+    assert (lse - ref_lse)[live].abs().max().item() < 1e-4
+    assert torch.equal(lse[~live], ref_lse[~live])      # -1e30 for the masked row
+    for got, want in zip(grads, ref_grads):
+        assert _rel_err(fold_heads(got, H), want) < F32_REL
+    if rate > 0:
+        bf_bits = flash_train_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), *args)[2]
+        assert torch.equal(bits, bf_bits)
+        assert torch.equal(bits, pack_keep_bits(keep_mask(91, W * H, Lq, Lk, rate, cuda)))
+        fwd0 += 1                         # the bf16 forward above
+    else:
+        assert bits is None
+    assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+
+
+# ---- K4 on its Hopper kernel (wgmma, TMA) at ragged and full shapes -----------
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["none", "mask", "full_row"])
+@pytest.mark.parametrize("B,H", [(1, 1), (8, 16)])
+@pytest.mark.parametrize("L", [1, 64, 65, 128, 129, 144, 145, 1025])
+def test_flash_mha_sm90_shapes_cuda(cuda, L, B, H, mask_kind):
+    """K4 against its plain version on q/k/v sliced from one fused qkv
+    tensor (row stride 3 x H x 64), maskless, with a key mask, and with one
+    batch row's keys all masked (that row averages V over its keys); one
+    launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(L + 7 * B)
+    qkv = torch.randn(B, L, 3 * H * 64, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split(H * 64, dim=-1)
+    mask = None
+    if mask_kind != "none":
+        mask = torch.rand(B, L, generator=g, device=cuda) > 0.3
+        mask[:, 0] = True
+        if mask_kind == "full_row":
+            mask[B - 1] = False
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, H, key_mask=mask)
+    ref = flash_mha_reference(q.float(), k.float(), v.float(), H, key_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    assert out.shape == (B, L, H * 64) and out.dtype == torch.bfloat16
+    assert _rel_err(out, ref) < CUDA_REL
+    if mask_kind == "full_row":
+        mean = v[B - 1].float().mean(0)
+        assert (out[B - 1].float() - mean).abs().max().item() < 2e-2

@@ -1,5 +1,5 @@
 """Guards of the port's boundaries: no module of ``vgqa_tpu_torch`` (nor
-``chip_smoke.py`` or ``chip_k6.py``) imports the JAX stack or anything of
+``chip_smoke.py``, ``chip_k6.py`` or ``chip_k4.py``) imports the JAX stack or anything of
 ``vgqa_tpu``; the entry points run on the card unless the caller asks for the CPU; and the
 port's copy of the tokenizer gives vgqa_tpu's ids."""
 
@@ -22,6 +22,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_k6.py")
+    yield os.path.join(REPO, "chip_k4.py")
 
 
 def _imported(tree):

@@ -1,8 +1,9 @@
 """Lightweight hierarchical config tree (yacs-compatible surface).
 
 Counterpart of ``vgqa_tpu/config/node.py`` with the same keys and behaviour.
-PyYAML is imported only inside the methods that parse or emit YAML, so the
-default config builds on a host without it:
+PyYAML is optional: ``merge_from_file`` uses it where it is installed and
+reads the config files' YAML subset itself where not, and ``dump`` writes
+that subset itself, so configs load and dump on a host without it:
 
     cfg.MODEL.VSTG.HIDDEN            # attribute access
     cfg.merge_from_file("x.yaml")    # YAML overlay
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ast
 import copy
+import json
 from typing import Any, Dict, List
 
 _VALID_SCALARS = (int, float, bool, str, type(None), tuple, list)
@@ -84,10 +86,20 @@ class CfgNode(dict):
                 super().__setitem__(k, _coerce(v, self[k], full))
 
     def merge_from_file(self, path: str) -> None:
-        import yaml
-
+        """Overlay a YAML file: through PyYAML where it is installed, else
+        through :func:`_yaml_mapping`, which reads only the subset config
+        files use (block mappings, scalars, flow lists) and raises
+        ``ValueError`` on anything else, such as block lists. The files in
+        ``configs/`` and every file :meth:`dump` writes are in that subset,
+        so they load alike with or without PyYAML."""
         with open(path, "r") as f:
-            data = yaml.safe_load(f) or {}
+            text = f.read()
+        try:
+            import yaml
+        except ImportError:
+            data = _yaml_mapping(text)
+        else:
+            data = yaml.safe_load(text) or {}
         if self.is_frozen():
             raise AttributeError("CfgNode is frozen")
         self._merge_dict(data)
@@ -117,9 +129,10 @@ class CfgNode(dict):
         }
 
     def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        """The tree as YAML in the subset :func:`_yaml_mapping` reads:
+        block mappings, and every other value on its key's line (lists and
+        tuples as flow lists, strings double-quoted), without PyYAML."""
+        return "".join(_yaml_lines(self.to_dict(), ""))
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"CfgNode({self.to_dict()!r})"
@@ -139,6 +152,93 @@ def _parse_scalar(text: str) -> Any:
         return ast.literal_eval(word)
     except (ValueError, SyntaxError):
         return word
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a ``#`` comment that starts outside quotes (a
+    backslash escapes the next character inside double quotes)."""
+    quote, escaped = None, False
+    for i, ch in enumerate(line):
+        if escaped:
+            escaped = False
+        elif quote:
+            if ch == quote:
+                quote = None
+            escaped = quote == '"' and ch == "\\"
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _yaml_mapping(text: str) -> Dict[str, Any]:
+    """The YAML that config files are written in, read without PyYAML:
+    nested block mappings by indentation, ``#`` comments, and scalar or
+    flow-list values read by :func:`_parse_scalar` (a numeric string such
+    as ``2e-4`` becomes a float here and a string under PyYAML; the merge
+    coerces both to the default's type). A ``key:`` with nothing under it
+    is null, as in YAML. Anything else (block lists, anchors, multi-line
+    scalars) raises ``ValueError``."""
+    root: Dict[str, Any] = {}
+    stack = [(-1, root)]
+    opened = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        body = line.lstrip(" ")
+        if not body or body == "---":
+            continue
+        key, sep, rest = body.partition(":")
+        if (not sep or body.startswith(("-", "&", "*", "|", ">", "[", "{"))
+                or "\t" in line[:len(line) - len(body)]
+                or rest.strip()[:1] in ("|", ">", "&", "*", "{")):
+            raise ValueError(f"line {n}: not a 'key: value' line of a config file: {raw!r}")
+        indent = len(line) - len(body)
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        key = key.strip().strip("'\"")
+        if rest.strip():
+            value = rest.strip()
+            if len(value) > 1 and value[0] == value[-1] == '"':
+                parent[key] = json.loads(value)
+            elif len(value) > 1 and value[0] == value[-1] == "'":
+                parent[key] = value[1:-1]
+            else:
+                parent[key] = _parse_scalar(value)
+        else:
+            child: Dict[str, Any] = {}
+            parent[key] = child
+            stack.append((indent, child))
+            opened.append((parent, key))
+    for parent, key in reversed(opened):
+        if parent[key] == {}:
+            parent[key] = None
+    return root
+
+
+def _yaml_lines(tree: Dict[str, Any], pad: str):
+    for key, value in tree.items():
+        if isinstance(value, dict) and value:
+            yield f"{pad}{key}:\n"
+            yield from _yaml_lines(value, pad + "  ")
+        else:
+            yield f"{pad}{key}: {_yaml_value(value)}\n"
+
+
+def _yaml_value(value: Any) -> str:
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_yaml_value(v) for v in value) + "]"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if value is None or value == {}:
+        return "null"
+    if isinstance(value, str):
+        return json.dumps(value)
+    text = repr(value)
+    if isinstance(value, float) and "e" in text and "." not in text:
+        text = text.replace("e", ".0e")    # YAML 1.1 (PyYAML) reads 1e-05 as a string
+    return text
 
 
 def _coerce(value: Any, old: Any, key: str) -> Any:

@@ -1,12 +1,13 @@
 // Attention forward, behind a plain C interface: the port of
-// vgqa_tpu/ops/pallas/flash_attention.py (K4 flash_attention / flash_mha,
-// Pallas _flash_kernel; K5 flash_gqa_causal, Pallas _flash_gqa_causal_kernel)
-// and the forward of vgqa_tpu/ops/pallas/flash_train.py (K3
-// flash_mha_train, Pallas _fwd_kernel; its backward is flash_train.cu).
+// vgqa_tpu/ops/pallas/flash_attention.py:flash_gqa_causal (K5, Pallas
+// _flash_gqa_causal_kernel) and the forward of
+// vgqa_tpu/ops/pallas/flash_train.py (K3 flash_mha_train, Pallas _fwd_kernel;
+// its backward is flash_train.cu). K4 flash_mha has its own Hopper kernel
+// in flash_mha_sm90.cu.
 //
-// One kernel template, attn_fwd_kernel<D, MODE>, instantiated for K4 at
-// D = 64 (non-causal, key mask), K5 at D = 128 (causal) and K3 at D = 32
-// (non-causal, key mask, lse and dropout): a block of 4 warps owns one
+// One kernel template, attn_fwd_kernel<D, MODE>, instantiated for K5 at
+// D = 128 (causal) and K3 at D = 32 (non-causal, key mask, lse and
+// dropout): a block of 4 warps owns one
 // (batch row, query head, tile of 64 queries); each warp holds 16 query
 // rows as mma.sync A fragments, keys and values stream through shared memory
 // in blocks of 64 rows, double-buffered with cp.async (the next block loads
@@ -23,16 +24,14 @@
 //   out[b, h, i, d] likewise.
 // Rows must be 16-byte aligned (the loads move 8 bf16 at a time).
 //
-// K4 (MODE_K4): keys whose mask byte is 0 get -1e30 (finite, as in Pallas);
-// keys past Lk do not exist (-inf). A row whose keys are all masked
-// therefore averages V over its Lk keys.
 // K5 (MODE_K5): query row i sits at position q_offset + i; a key j is
 // masked (-1e30) when j > q_offset + i or j >= length, where length is read
 // from device memory (no host sync). Key blocks past the tile's causal
 // frontier, and past length when length >= 1, are never read: with
 // length >= 1 key 0 is valid for every row, so the skipped keys would only
 // have added exact zeros.
-// K3 (MODE_K3): K4's masking on the packed [W, L, H*32] layout, with the
+// K3 (MODE_K3): keys whose mask byte is 0 get -1e30 (finite, as in Pallas),
+// keys past Lk do not exist (-inf); on the packed [W, L, H*32] layout, with the
 // logits in base 2 (log2(e) folded into the scale, one ex2 per element),
 // lse = m + log(l) written in natural log to [W*H, Lq], and dropout: the
 // keep decision of (folded row b = w*H + h, query i, key j) is word (j mod 4)
@@ -44,16 +43,17 @@
 // elements. The kernel writes the decisions as bits ([W*H, Lq, ceil(Lk/32)]
 // uint32, bit j % 32 of word j / 32, zero past Lk), which the backward
 // reads, so the mask is drawn once per training step. l sums the kept and
-// the dropped probabilities; out = (kept P) V / l / (1 - rate). K4 and K5
-// compute in base e (expf).
+// the dropped probabilities; out = (kept P) V / l / (1 - rate). K5
+// computes in base e (expf).
 
 #include "attention_common.cuh"
+#include "f32_rows.cuh"
 
 using namespace vgqa_attn;
 
 namespace {
 
-constexpr int MODE_K4 = 0, MODE_K5 = 1, MODE_K3 = 2;
+constexpr int MODE_K5 = 1, MODE_K3 = 2;
 constexpr int AWARPS = 4;
 constexpr int AQT = 16 * AWARPS;      // query rows per block
 constexpr int AKB = 64;               // keys per streamed block
@@ -63,9 +63,8 @@ constexpr float LN2 = 0.6931471805599453f;
 
 constexpr int K3_MAX_LK = 1024;        // K3's keys (supported_seq); its key terms stay resident
 
-// shared memory: two stages of K and V tiles [64][D + 8], then K4's key
-// flags (two stages of 64 bytes) or K3's key terms (a float2 per key of
-// the row, written once)
+// shared memory: two stages of K and V tiles [64][D + 8], then K3's key
+// terms (a float2 per key of the row, written once; 128 bytes for K5)
 template <int D, int MODE>
 constexpr int smem_bytes() {
   return 2 * 2 * AKB * (D + 8) * 2 + (MODE == MODE_K3 ? K3_MAX_LK * 8 : 2 * AKB);
@@ -77,7 +76,7 @@ struct AttnParams {
   long long k_sb, k_sh, k_sl;
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
-  const unsigned char* mask;   // K4, K3: [B, Lk], nonzero = attend, or null
+  const unsigned char* mask;   // K3: [B, Lk], nonzero = attend, or null
   const int* length;           // K5: valid keys, on the device
   int group, Lq, Lk, q_offset;
   float scale;
@@ -116,7 +115,7 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);                  // [2][64][D + 8]
   bf16* Vs = Ks + 2 * AKB * (D + 8);                         // [2][64][D + 8]
-  unsigned char* kf = smem + 2 * 2 * AKB * (D + 8) * 2;     // K4: [2][64] key flags
+  unsigned char* kf = smem + 2 * 2 * AKB * (D + 8) * 2;
   // K3: logit x = fma(s, kt.x, kt.y) of key j with kt = kterm[j]: (scale
   // log2(e), 0) attended, (0, -1e30) masked, (0, -inf) past Lk
   float2* kterm = reinterpret_cast<float2*>(kf);
@@ -144,20 +143,17 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
   const int drow = (t & 1) ? r1 : r0;
   const int nw = (p.Lk + 31) / 32;
 
-  // key flags (K4, K3: 0 attend, 1 masked, 2 past Lk) of key gj
+  // key flag (K3: 0 attend, 1 masked, 2 past Lk) of key gj
   auto flag = [&](int gj) -> unsigned char {
     if (gj >= p.Lk) return 2;
     return (p.mask && !p.mask[(long long)b * p.Lk + gj]) ? 1 : 0;
   };
-  // stage key block `blk` into buffer `buf`: K and V rows by cp.async, K4's
-  // key flags by plain loads
+  // stage key block `blk` into buffer `buf`: K and V rows by cp.async
   auto stage = [&](int blk, int buf) {
     const int k0 = blk * AKB;
     load_tile<D>(Ks + buf * AKB * (D + 8), kb, p.k_sl, k0, p.Lk);
     load_tile<D>(Vs + buf * AKB * (D + 8), vb, p.v_sl, k0, p.Lk);
     cp_async_commit();
-    if (MODE == MODE_K4)
-      for (int j = threadIdx.x; j < AKB; j += blockDim.x) kf[buf * AKB + j] = flag(k0 + j);
   };
   stage(0, 0);
   // K3: every key's term once (one load latency per block, not one per key block)
@@ -237,11 +233,8 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
           if (CAUSAL) {
             const int c = k0 + cl, qp = e < 2 ? qp0 : qp1;
             x = c >= p.Lk ? -INFINITY : ((c > qp || c >= len) ? A_NEG : s[j][e] * scale);
-          } else if (TRAIN) {
-            x = (e & 1) ? fmaf(s[j][e], kt2.z, kt2.w) : fmaf(s[j][e], kt2.x, kt2.y);
           } else {
-            const int f = kf[buf * AKB + cl];
-            x = f == 0 ? s[j][e] * scale : (f == 1 ? A_NEG : -INFINITY);
+            x = (e & 1) ? fmaf(s[j][e], kt2.z, kt2.w) : fmaf(s[j][e], kt2.x, kt2.y);
           }
           s[j][e] = x;
         }
@@ -311,30 +304,112 @@ int launch_d(const AttnParams& p, dim3 grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the three instances: K4 at the InternViT head dim 64, K5 at the LLM head
-// dim 128, K3 at the grounding encoder's head dim 32
-constexpr int K4_D = 64, K5_D = 128, K3_D = 32;
+// the two instances: K5 at the LLM head dim 128, K3 at the grounding
+// encoder's head dim 32
+constexpr int K5_D = 128, K3_D = 32;
+
+// ---------------------------------------------------------------------------
+// K3's forward in float32 (the JAX kernel at f32, where its bf16 rounding
+// points are no-ops): FFMA only, nothing rounded. vgqa_f32::row_attention
+// (f32_rows.cuh, shared with K2's f32 kernel) with one block per (w, h,
+// tile of 128 queries), one thread per query row; each chunk of 32 keys
+// brings its key terms (TrainF32Terms) and, under dropout, its keep bits. The logits are
+// in base 2 as in the bf16 instance, and the keep decisions are the same
+// function: key j of (folded row b, query i) is word j mod 4 of the Philox
+// call with key (seed + b, 0) and counter (i, j / 4), so each thread draws
+// 8 calls per chunk (one per four keys, as the bf16 kernel) and writes the
+// chunk's 32 decisions as one word of the same bit layout. At [512, 418,
+// 32] this is 64 FFMA per query-key pair: ~0.17 ms at the card's 67 TFLOP/s
+// outside the tensor cores, against ~0.02 ms of bytes.
+// ---------------------------------------------------------------------------
+constexpr int F3_QT = 128;     // queries per block, one per thread
+constexpr int F3_KC = vgqa_f32::F32_KC;   // keys per streamed chunk (one keep-bit word)
+
+struct Train32Params {
+  const float* q; const float* k; const float* v; float* out;
+  float* lse; uint32_t* bits; const unsigned char* mask;
+  int Lq, Lk, H;
+  float scale;
+  uint32_t seed, thresh;
+  int dropout;
+  float inv_keep;
+};
+
+struct TrainF32Terms {         // K3's key terms and keep bits
+  Train32Params p;
+  int w, i;
+  uint32_t frow;
+  float scale2;
+  int nw;
+  float2* kt_s;
+
+  __device__ void stage(int k0) {
+    const int tid = threadIdx.x;
+    if (tid < F3_KC) {
+      // logit x = fma(s, kt.x, kt.y): (scale log2(e), 0) attended, (0,
+      // -1e30) masked, (0, -inf) past Lk
+      const int j = k0 + tid;
+      float2 kt = make_float2(scale2, 0.f);
+      if (j >= p.Lk) kt = make_float2(0.f, -INFINITY);
+      else if (p.mask && !p.mask[(long long)w * p.Lk + j]) kt = make_float2(0.f, A_NEG);
+      kt_s[tid] = kt;
+    }
+  }
+  __device__ uint32_t keep(int k0) const {
+    if (!p.dropout) return ~0u;
+    uint32_t keep = 0u;
+#pragma unroll
+    for (int c = 0; c < F3_KC / 4; ++c)
+      keep |= keep_nibble(philox4(p.seed + frow, (uint32_t)i, (uint32_t)(k0 >> 2) + c),
+                          p.thresh) << (4 * c);
+    const int nb = p.Lk - k0;
+    if (nb < 32) keep &= (1u << nb) - 1u;
+    p.bits[((long long)frow * p.Lq + i) * nw + k0 / 32] = keep;
+    return keep;
+  }
+  __device__ float logit(float dot, int j) const {
+    const float2 kt = kt_s[j];
+    return fmaf(dot, kt.x, kt.y);
+  }
+  static __device__ float expb(float x) { return ex2(x); }
+};
+
+__global__ void __launch_bounds__(F3_QT) train_fwd_f32_kernel(Train32Params p) {
+  __shared__ float2 kt_s[F3_KC];
+  const int w = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int i = blockIdx.z * F3_QT + tid;
+  const bool active = i < p.Lq;
+  const long long C = (long long)p.H * K3_D;
+  const uint32_t frow = (uint32_t)w * p.H + h;
+
+  float q[K3_D], o[K3_D];
+  const float* qr = p.q + ((long long)w * p.Lq + (active ? i : 0)) * C + h * K3_D;
+#pragma unroll
+  for (int d = 0; d < K3_D; d += 4) {
+    const float4 x = active ? *reinterpret_cast<const float4*>(qr + d)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    q[d] = x.x; q[d + 1] = x.y; q[d + 2] = x.z; q[d + 3] = x.w;
+  }
+  TrainF32Terms terms{p, w, i, frow, p.scale * LOG2E, (p.Lk + 31) / 32, kt_s};
+  float m, l;
+  vgqa_f32::row_attention<K3_D, F3_QT>(p.k + (long long)w * p.Lk * C + h * K3_D, C,
+                                       p.v + (long long)w * p.Lk * C + h * K3_D, C, p.Lk,
+                                       q, o, m, l, active, terms);
+  if (!active) return;
+  const float sc = p.inv_keep / fmaxf(l, 1e-30f);
+  float* orow = p.out + ((long long)w * p.Lq + i) * C + h * K3_D;
+#pragma unroll
+  for (int d = 0; d < K3_D; d += 4)
+    *reinterpret_cast<float4*>(orow + d) =
+        make_float4(o[d] * sc, o[d + 1] * sc, o[d + 2] * sc, o[d + 3] * sc);
+  // natural log; a row whose keys are all masked keeps lse = -1e30
+  p.lse[(long long)frow * p.Lq + i] = m <= 0.5f * A_NEG ? A_NEG : m * LN2 + logf(l);
+}
+
 
 }  // namespace
 
 extern "C" {
-
-// K4: out[b, i, h*D + d] = softmax_j(q k^T * scale, mask) v over the heads
-// packed in the channel dim of q/k/v rows; D = 64.
-int vgqa_flash_mha(const void* q, const void* k, const void* v, void* out,
-                   const unsigned char* mask, int B, int Lq, int Lk, int H, int D,
-                   long long q_sb, long long q_sl, long long k_sb, long long k_sl,
-                   long long v_sb, long long v_sl, long long o_sb, long long o_sl, float scale,
-                   void* stream) {
-  if (D != K4_D || B < 1 || H < 1 || Lq < 1 || Lk < 1 || H > 65535 ||
-      (Lq + AQT - 1) / AQT > 65535)
-    return (int)cudaErrorInvalidValue;
-  AttnParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-               q_sb, (long long)D, q_sl, k_sb, (long long)D, k_sl, v_sb, (long long)D, v_sl,
-               o_sb, (long long)D, o_sl, mask, nullptr, 1, Lq, Lk, 0, scale};
-  return launch_d<K4_D, MODE_K4>(p, dim3(B, H, (Lq + AQT - 1) / AQT),
-                                 reinterpret_cast<cudaStream_t>(stream));
-}
 
 // K5: causal GQA prefill attention, q [H, Lq, D] (strides q_sh, q_sl),
 // k/v [Hkv, S, D], out [H, Lq, D], D = 128; query head h reads KV head
@@ -372,6 +447,24 @@ int vgqa_flash_train_fwd(const void* q, const void* k, const void* v, void* out,
                lse, (uint32_t*)bits, (uint32_t)seed, thresh, dropout, inv_keep};
   return launch_d<K3_D, MODE_K3>(p, dim3(W, H, (Lq + AQT - 1) / AQT),
                                  reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K3 forward in float32: the same operands and layout as
+// vgqa_flash_train_fwd with float q/k/v/out; keep bits equal to the bf16
+// kernel's for the same (seed, W, H, Lq, Lk, rate).
+int vgqa_flash_train_fwd_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                             void* bits, const unsigned char* mask, int W, int Lq, int Lk, int H,
+                             float scale, int seed, unsigned int thresh, int dropout,
+                             float inv_keep, void* stream) {
+  if (W < 1 || H < 1 || Lq < 1 || Lk < 1 || Lk > K3_MAX_LK || H > 65535 ||
+      (Lq + F3_QT - 1) / F3_QT > 65535 || (dropout && !bits))
+    return (int)cudaErrorInvalidValue;
+  Train32Params p{(const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+                  (uint32_t*)bits, mask, Lq, Lk, H, scale, (uint32_t)seed, thresh, dropout,
+                  inv_keep};
+  train_fwd_f32_kernel<<<dim3(W, H, (Lq + F3_QT - 1) / F3_QT), F3_QT, 0,
+                         reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

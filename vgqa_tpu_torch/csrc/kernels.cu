@@ -19,6 +19,19 @@
 //                       epilogues: bias, exact erf GELU, DropPath gate,
 //                       residual add, and the scatter of window tokens back
 //                       to canvas rows.
+// Float32 forms of the same chain (the JAX block at float32, whose bf16
+// rounding points are no-ops there), all arithmetic in FFMA:
+//   window_attn_f32_kernel  one thread per query row, keys and values streamed
+//                       through shared memory in chunks of 32, online softmax
+//                       (vgqa_f32::row_attention, f32_rows.cuh, shared with
+//                       K3's f32 forward);
+//   ln_rows_kernel<float>;
+//   gemm_f32_kernel     128x128x8 block tiles, 8x8 outputs per thread,
+//                       register-prefetched double buffer, the same epilogues
+//                       (gemm_epilogue<T>) with every rounding an identity.
+// On an H100 the f32 chain is bound by its FFMA products (67 TFLOP/s
+// outside the tensor cores, against 989 for bf16): single-pass TF32 would
+// not be float32, and 3xTF32 is later work.
 // swin_block_canvas (the port of vgqa_tpu/ops/pallas/swin_block.py:
 // swin_block_canvas) chains ln_rows -> gemm(qkv) -> window_attn ->
 // gemm(proj + residual) -> ln_rows -> gemm(fc1 + GELU) -> gemm(fc2 +
@@ -31,14 +44,25 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "f32_rows.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// round a float through bf16 (the rounding points of the JAX kernel)
-__device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
+// element type T (bf16 or float) to and from f32; rnd<T> rounds through T
+// (an identity for float: the JAX kernel's rounding points at f32)
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <typename T> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
+
+// 8 consecutive elements: one 16-byte access for bf16, two for float
+template <typename T> struct alignas(16) Pack8 { T v[8]; };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -64,10 +88,11 @@ constexpr int WA_KB = 64;     // keys per online-softmax step
 constexpr int WA_KLD = WA_D + 8;       // bf16 row stride of K in smem
 constexpr int WA_MAX_TOKENS = 1024;    // 150 KB of shared memory at 1024
 
-struct WAParams {
-  const bf16* q; const bf16* k; const bf16* v; bf16* out;
+template <typename T>
+struct WAParamsT {
+  const T* q; const T* k; const T* v; T* out;
   long long q_win, q_row, k_win, k_row, v_win, v_row, o_win, o_row;
-  const bf16* bias;         // [H, N, N] or null
+  const T* bias;            // [H, N, N] or null
   const int* region;        // [n_region, N] or null; window w uses row w % n_region
   int n_region;
   const float* key_valid;   // [n_kvalid, N] or null; > 0 = attendable key
@@ -75,6 +100,7 @@ struct WAParams {
   int N;
   float scale;
 };
+using WAParams = WAParamsT<bf16>;
 
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -255,34 +281,121 @@ int launch_window_attn(const WAParams& p, int W, int H, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// Row LayerNorm over bf16 rows, one warp per row, two-pass f32 statistics.
-// Row m reads source row rowmap[m] (or m), is multiplied by valid[m % n_valid]
-// when given, and is written densely at row m.
+// Windowed attention in float32 (FFMA): vgqa_f32::row_attention (f32_rows.cuh)
+// with one block per (window w, head h, tile of 128 query rows). Each chunk
+// of 32 keys brings its additive key mask, region ids and the [128][32] tile
+// of the rel-pos bias (loaded row-coalesced, read without bank conflicts
+// through the 33-float row stride); logits in base e, as in the bf16 kernel.
+// Nothing is rounded.
 // ---------------------------------------------------------------------------
-__global__ void ln_rows_kernel(const bf16* __restrict__ x, const int* __restrict__ rowmap,
-                               const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+constexpr int WF_QT = 128;    // query rows per block (one per thread)
+constexpr int WF_KC = vgqa_f32::F32_KC;
+
+struct WindowF32Terms {        // K2's key terms: bias + region + key mask
+  struct { const float* bias; const int* region; const float* key_valid;
+           int n_region, n_kvalid, N; float scale; } p;     // the fields read here
+  long long w;
+  int h, row0, rq;
+  float (*Bc)[WF_KC + 1];
+  float* kadd;
+  int* kreg;
+
+  __device__ void stage(int k0) {
+    const int tid = threadIdx.x, N = p.N;
+    if (tid < WF_KC) {
+      const int j = k0 + tid;
+      float a = -INFINITY;     // keys past N drop out of the softmax
+      int rg = 0;
+      if (j < N) {
+        a = 0.f;
+        if (p.key_valid && !(p.key_valid[(w % p.n_kvalid) * N + j] > 0.f)) a = NEG_INF;
+        if (p.region) rg = p.region[(w % p.n_region) * N + j];
+      }
+      kadd[tid] = a;
+      kreg[tid] = rg;
+    }
+    if (p.bias)
+      for (int i = tid; i < WF_QT * WF_KC; i += WF_QT) {
+        const int rr = i / WF_KC, c = i % WF_KC;
+        const int br = row0 + rr, bc = k0 + c;
+        Bc[rr][c] = (br < N && bc < N) ? p.bias[((long long)h * N + br) * N + bc] : 0.f;
+      }
+  }
+  __device__ uint32_t keep(int) const { return ~0u; }
+  __device__ float logit(float dot, int j) const {
+    float x = dot * p.scale + kadd[j];
+    if (p.region && kreg[j] != rq) x += NEG_INF;
+    if (p.bias) x += Bc[threadIdx.x][j];
+    return x;
+  }
+  static __device__ float expb(float x) { return expf(x); }
+};
+
+__global__ void __launch_bounds__(WF_QT)
+window_attn_f32_kernel(WAParamsT<float> p) {
+  __shared__ float Bc[WF_QT][WF_KC + 1];
+  __shared__ float kadd[WF_KC];
+  __shared__ int kreg[WF_KC];
+  const int N = p.N;
+  const long long w = blockIdx.x;
+  const int h = blockIdx.y, tid = threadIdx.x;
+  const int row0 = blockIdx.z * WF_QT, r = row0 + tid;
+  const bool valid = r < N;
+
+  float q[WA_D], o[WA_D];
+  const float* qr = p.q + w * p.q_win + (long long)(valid ? r : 0) * p.q_row + h * WA_D;
+#pragma unroll
+  for (int d = 0; d < WA_D; d += 4) {
+    const float4 x = valid ? *reinterpret_cast<const float4*>(qr + d)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    q[d] = x.x; q[d + 1] = x.y; q[d + 2] = x.z; q[d + 3] = x.w;
+  }
+  const int rq = (valid && p.region) ? p.region[(w % p.n_region) * N + r] : 0;
+  WindowF32Terms terms{{p.bias, p.region, p.key_valid, p.n_region, p.n_kvalid, N, p.scale},
+                       w, h, row0, rq, Bc, kadd, kreg};
+  // every row computes, those past N on a zero q: ptxas allocates more
+  // registers to the loop when it is skipped for them, and the kernel runs slower
+  float m, l;
+  vgqa_f32::row_attention<WA_D, WF_QT>(p.k + w * p.k_win + h * WA_D, p.k_row,
+                                       p.v + w * p.v_win + h * WA_D, p.v_row, N, q, o, m, l,
+                                       true, terms);
+  if (!valid) return;
+  float* orow = p.out + w * p.o_win + (long long)r * p.o_row + h * WA_D;
+#pragma unroll
+  for (int d = 0; d < WA_D; d += 4)
+    *reinterpret_cast<float4*>(orow + d) =
+        make_float4(o[d] / l, o[d + 1] / l, o[d + 2] / l, o[d + 3] / l);
+}
+
+// ---------------------------------------------------------------------------
+// Row LayerNorm over bf16 or float rows, one warp per row, two-pass f32
+// statistics. Row m reads source row rowmap[m] (or m), is multiplied by
+// valid[m % n_valid] when given, and is written densely at row m.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void ln_rows_kernel(const T* __restrict__ x, const int* __restrict__ rowmap,
+                               const T* __restrict__ gamma, const T* __restrict__ beta,
                                const float* __restrict__ valid, int n_valid,
-                               bf16* __restrict__ out, int M, int C, float eps) {
+                               T* __restrict__ out, int M, int C, float eps) {
   const long long m = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (m >= M) return;
   const long long src = (rowmap ? (long long)rowmap[m] : m) * C;
-  const bf16* xr = x + src;
+  const T* xr = x + src;
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
   const float mean = warp_sum(s) / C;
   float v = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mean;
+    const float d = to_f(xr[c]) - mean;
     v += d * d;
   }
   const float r = rsqrtf(warp_sum(v) / C + eps);
   const float vm = valid ? valid[m % n_valid] : 1.f;
-  bf16* orow = out + m * C;
+  T* orow = out + m * C;
   for (int c = lane; c < C; c += 32) {
-    const float y = (__bfloat162float(xr[c]) - mean) * r * __bfloat162float(gamma[c])
-                    + __bfloat162float(beta[c]);
-    orow[c] = __float2bfloat16(y * vm);
+    const float y = (to_f(xr[c]) - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
+    orow[c] = from_f<T>(y * vm);
   }
 }
 
@@ -323,18 +436,75 @@ enum EpiMode {
   EPI_RES_SCATTER = 3,    // out[rowmap[m]] = res[m] + gate * bf16(bf16(acc) + bias)
 };
 
-struct GemmParams {
-  const bf16* A; long long lda;
-  const bf16* W; long long ldw;
-  const bf16* bias;          // [N] or null
-  bf16* out; long long ldo;
-  const bf16* res; long long ldr;
+template <typename T>
+struct GemmParamsT {
+  const T* A; long long lda;
+  const T* W; long long ldw;
+  const T* bias;             // [N] or null
+  T* out; long long ldo;
+  const T* res; long long ldr;
   const int* rowmap;
   const float* gates;        // [B, 2] DropPath branch gates or null
   int gate_col;
   long long rows_per_sample; // rows of one sample (gate row = m / rows_per_sample)
   int M, N, K, mode;
 };
+using GemmParams = GemmParamsT<bf16>;
+
+// The fused epilogue of both GEMMs over the block's f32 accumulator tile Cs
+// [GB_M][GC_LD] (rows m0.., columns n0..): 8 consecutive columns per thread
+// and step, 16-byte loads and stores (the wrapper guarantees N, ldo and ldr
+// are multiples of 8). rnd<T> places the bf16 rounding points of the JAX
+// kernel; at float they are identities.
+template <typename T>
+__device__ __forceinline__ void gemm_epilogue(const GemmParamsT<T>& p, const float* Cs,
+                                              long long m0, int n0, int tid) {
+  for (int e = tid; e < GB_M * GB_N / 8; e += 256) {
+    const int r = e / (GB_N / 8), c = (e % (GB_N / 8)) * 8;
+    const long long m = m0 + r;
+    const int n = n0 + c;
+    if (m >= p.M || n >= p.N) continue;
+    const float4 a0 = *reinterpret_cast<const float4*>(Cs + r * GC_LD + c);
+    const float4 a1 = *reinterpret_cast<const float4*>(Cs + r * GC_LD + c + 4);
+    const float acc[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float b[8];
+    if (p.bias) {
+      const Pack8<T> bv = *reinterpret_cast<const Pack8<T>*>(p.bias + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) b[i] = to_f(bv.v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) b[i] = 0.f;
+    }
+    Pack8<T> ov;
+    long long dst = m * p.ldo + n;
+    if (p.mode == EPI_BIAS) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ov.v[i] = from_f<T>(rnd<T>(acc[i]) + b[i]);
+    } else if (p.mode == EPI_GELU) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float t = acc[i] + b[i];
+        ov.v[i] = from_f<T>(0.5f * t * (1.f + erff(t * 0.70710678118654752f)));
+      }
+    } else {
+      const float g = p.gates ? rnd<T>(p.gates[(m / p.rows_per_sample) * 2 + p.gate_col]) : 1.f;
+      long long src = m * p.ldr + n;
+      if (p.rowmap) {         // a null map is the identity (swin_block_fused)
+        if (p.mode == EPI_RES_GATHER) src = (long long)p.rowmap[m] * p.ldr + n;
+        else dst = (long long)p.rowmap[m] * p.ldo + n;
+      }
+      const Pack8<T> xv = *reinterpret_cast<const Pack8<T>*>(p.res + src);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float t = rnd<T>(rnd<T>(acc[i]) + b[i]);
+        if (p.gates) t = rnd<T>(t * g);
+        ov.v[i] = from_f<T>(to_f(xv.v[i]) + t);
+      }
+    }
+    *reinterpret_cast<Pack8<T>*>(p.out + dst) = ov;
+  }
+}
 
 __global__ void __launch_bounds__(256)
 gemm_bf16_kernel(GemmParams p) {
@@ -413,56 +583,138 @@ gemm_bf16_kernel(GemmParams p) {
                               GC_LD, wmma::mem_row_major);
   __syncthreads();
 
-  // 8 consecutive columns per thread and step: 16-byte loads and stores
-  // (the wrapper guarantees N, ldo and ldr are multiples of 8)
-  for (int e = tid; e < GB_M * GB_N / 8; e += 256) {
-    const int r = e / (GB_N / 8), c = (e % (GB_N / 8)) * 8;
-    const long long m = m0 + r;
-    const int n = n0 + c;
-    if (m >= p.M || n >= p.N) continue;
-    const float4 a0 = *reinterpret_cast<const float4*>(Cs + r * GC_LD + c);
-    const float4 a1 = *reinterpret_cast<const float4*>(Cs + r * GC_LD + c + 4);
-    const float acc[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float b[8];
-    if (p.bias) {
-      const uint4 bv = *reinterpret_cast<const uint4*>(p.bias + n);
-      const bf16* bb = reinterpret_cast<const bf16*>(&bv);
+  gemm_epilogue<bf16>(p, Cs, m0, n0, tid);
+}
+
+// ---------------------------------------------------------------------------
+// out = epilogue(A[M, K] @ W[N, K]^T) in float32 on the FFMA units. Block
+// tile 128x128, k-step 8, 256 threads of 8x8 outputs each (rows ty*4 + i
+// and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j, so that every
+// shared-memory read is a conflict-free float4). The A and W tiles are
+// stored transposed ([k][row]) in a double buffer; the next k-step's tiles
+// are fetched into registers while the current one computes, so one
+// __syncthreads per k-step suffices. The accumulators then go through the
+// shared Cs tile into the same epilogue as the bf16 GEMM.
+// ---------------------------------------------------------------------------
+constexpr int FB_K = 8;
+constexpr int F_LD = GB_M + 4;      // row stride of a transposed tile [k][row] (floats)
+constexpr int F_SMEM_BYTES = 2 * 2 * FB_K * F_LD * 4 > GB_M * GC_LD * 4
+                                 ? 2 * 2 * FB_K * F_LD * 4 : GB_M * GC_LD * 4;
+
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(GemmParamsT<float> p) {
+  extern __shared__ __align__(128) unsigned char g_smem[];
+  float* As = reinterpret_cast<float*>(g_smem);      // [2][FB_K][F_LD]
+  float* Ws = As + 2 * FB_K * F_LD;                    // [2][FB_K][F_LD]
+  float* Cs = reinterpret_cast<float*>(g_smem);      // [GB_M][GC_LD], after the k loop
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * GB_N;
+  const long long m0 = (long long)blockIdx.y * GB_M;
+  const int KT = (p.K + FB_K - 1) / FB_K;
+  // this thread's share of a tile: row lr, k offset lk (4 floats of A, 4 of W)
+  const int lr = tid / 2, lk = (tid % 2) * 4;
+  const long long gm = m0 + lr;
+  const int gn = n0 + lr;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  auto fetch = [&](int kt, float4& a, float4& w) {
+    const int k = kt * FB_K + lk;      // K % 4 == 0: k < K covers k .. k + 3
+    a = (gm < p.M && k < p.K) ? *reinterpret_cast<const float4*>(p.A + gm * p.lda + k) : zero;
+    w = (gn < p.N && k < p.K) ? *reinterpret_cast<const float4*>(p.W + (long long)gn * p.ldw + k)
+                              : zero;
+  };
+  auto put = [&](int buf, const float4& a, const float4& w) {
+    float* as = As + buf * FB_K * F_LD + lk * F_LD + lr;
+    float* ws = Ws + buf * FB_K * F_LD + lk * F_LD + lr;
+    as[0] = a.x; as[F_LD] = a.y; as[2 * F_LD] = a.z; as[3 * F_LD] = a.w;
+    ws[0] = w.x; ws[F_LD] = w.y; ws[2 * F_LD] = w.z; ws[3 * F_LD] = w.w;
+  };
+
+  float acc[8][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) b[i] = __bfloat162float(bb[i]);
-    } else {
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) b[i] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 ra, rw;
+  fetch(0, ra, rw);
+  put(0, ra, rw);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < KT) fetch(kt + 1, ra, rw);
+    const float* as = As + buf * FB_K * F_LD;
+    const float* ws = Ws + buf * FB_K * F_LD;
+#pragma unroll
+    for (int k = 0; k < FB_K; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * F_LD + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * F_LD + 64 + ty * 4);
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + k * F_LD + tx * 4);
+      const float4 w1 = *reinterpret_cast<const float4*>(ws + k * F_LD + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
-    uint4 ov;
-    bf16* o = reinterpret_cast<bf16*>(&ov);
-    long long dst = m * p.ldo + n;
-    if (p.mode == EPI_BIAS) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16(rbf(acc[i]) + b[i]);
-    } else if (p.mode == EPI_GELU) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float t = acc[i] + b[i];
-        o[i] = __float2bfloat16(0.5f * t * (1.f + erff(t * 0.70710678118654752f)));
-      }
-    } else {
-      const float g = p.gates ? rbf(p.gates[(m / p.rows_per_sample) * 2 + p.gate_col]) : 1.f;
-      long long src = m * p.ldr + n;
-      if (p.rowmap) {         // a null map is the identity (swin_block_fused)
-        if (p.mode == EPI_RES_GATHER) src = (long long)p.rowmap[m] * p.ldr + n;
-        else dst = (long long)p.rowmap[m] * p.ldo + n;
-      }
-      const uint4 xv = *reinterpret_cast<const uint4*>(p.res + src);
-      const bf16* x = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float t = rbf(rbf(acc[i]) + b[i]);
-        if (p.gates) t = rbf(t * g);
-        o[i] = __float2bfloat16(__bfloat162float(x[i]) + t);
-      }
-    }
-    *reinterpret_cast<uint4*>(p.out + dst) = ov;
+    if (kt + 1 < KT) put(buf ^ 1, ra, rw);
+    __syncthreads();      // buffer buf ^ 1 is written; buffer buf is consumed
   }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+    *reinterpret_cast<float4*>(Cs + r * GC_LD + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(Cs + r * GC_LD + 64 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();
+  gemm_epilogue<float>(p, Cs, m0, n0, tid);
+}
+
+template <typename T>
+int launch_gemm(const GemmParamsT<T>& p, cudaStream_t stream) {
+  constexpr bool F32 = sizeof(T) == 4;
+  const long long m_tiles = ((long long)p.M + GB_M - 1) / GB_M;
+  if (m_tiles > 65535 || (F32 && p.K % 4)) return (int)cudaErrorInvalidValue;
+  dim3 grid((p.N + GB_N - 1) / GB_N, (unsigned)m_tiles);
+  cudaError_t e;
+  if constexpr (F32) {
+    e = cudaFuncSetAttribute(gemm_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    gemm_f32_kernel<<<grid, 256, F_SMEM_BYTES, stream>>>(p);
+  } else {
+    e = cudaFuncSetAttribute(gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    gemm_bf16_kernel<<<grid, 256, G_SMEM_BYTES, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ln_rows(const void* x, const int* rowmap, const void* gamma, const void* beta,
+                   const float* valid, int n_valid, void* out, int M, int C, float eps,
+                   void* stream) {
+  const int threads = 256;
+  const long long blocks = ((long long)M * 32 + threads - 1) / threads;
+  ln_rows_kernel<T><<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const T*)x, rowmap, (const T*)gamma, (const T*)beta, valid, n_valid, (T*)out, M, C, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+GemmParamsT<T> gemm_params(const void* A, long long lda, const void* W, long long ldw,
+                           const void* bias, void* out, long long ldo, int M, int N, int K,
+                           int mode, const void* res, long long ldr, const int* rowmap,
+                           const float* gates, int gate_col, long long rows_per_sample) {
+  return GemmParamsT<T>{(const T*)A, lda, (const T*)W, ldw, (const T*)bias, (T*)out, ldo,
+                        (const T*)res, ldr, rowmap, gates, gate_col, rows_per_sample,
+                        M, N, K, mode};
 }
 
 }  // namespace
@@ -483,31 +735,51 @@ int vgqa_window_attention(const void* q, const void* k, const void* v, void* out
   return launch_window_attn(p, W, H, reinterpret_cast<cudaStream_t>(stream));
 }
 
+// the same in float32 (q, k, v, out and bias float; any N >= 1)
+int vgqa_window_attention_f32(const void* q, const void* k, const void* v, void* out,
+                              int W, int N, int H,
+                              long long q_win, long long q_row, long long k_win, long long k_row,
+                              long long v_win, long long v_row, long long o_win, long long o_row,
+                              const void* bias, const int* region, int n_region,
+                              const float* key_valid, int n_kvalid, float scale, void* stream) {
+  if (N < 1 || H > 65535 || (N + WF_QT - 1) / WF_QT > 65535) return (int)cudaErrorInvalidValue;
+  WAParamsT<float> p{(const float*)q, (const float*)k, (const float*)v, (float*)out,
+                     q_win, q_row, k_win, k_row, v_win, v_row, o_win, o_row,
+                     (const float*)bias, region, n_region, key_valid, n_kvalid, N, scale};
+  dim3 grid(W, H, (N + WF_QT - 1) / WF_QT);
+  window_attn_f32_kernel<<<grid, WF_QT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 int vgqa_ln_rows(const void* x, const int* rowmap, const void* gamma, const void* beta,
                  const float* valid, int n_valid, void* out, int M, int C, float eps,
                  void* stream) {
-  const int threads = 256;
-  const long long blocks = ((long long)M * 32 + threads - 1) / threads;
-  ln_rows_kernel<<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, rowmap, (const bf16*)gamma, (const bf16*)beta, valid, n_valid,
-      (bf16*)out, M, C, eps);
-  return (int)cudaGetLastError();
+  return launch_ln_rows<bf16>(x, rowmap, gamma, beta, valid, n_valid, out, M, C, eps, stream);
+}
+
+int vgqa_ln_rows_f32(const void* x, const int* rowmap, const void* gamma, const void* beta,
+                     const float* valid, int n_valid, void* out, int M, int C, float eps,
+                     void* stream) {
+  return launch_ln_rows<float>(x, rowmap, gamma, beta, valid, n_valid, out, M, C, eps, stream);
 }
 
 int vgqa_gemm_bf16(const void* A, long long lda, const void* W, long long ldw, const void* bias,
                    void* out, long long ldo, int M, int N, int K, int mode,
                    const void* res, long long ldr, const int* rowmap,
                    const float* gates, int gate_col, long long rows_per_sample, void* stream) {
-  GemmParams p{(const bf16*)A, lda, (const bf16*)W, ldw, (const bf16*)bias, (bf16*)out, ldo,
-               (const bf16*)res, ldr, rowmap, gates, gate_col, rows_per_sample, M, N, K, mode};
-  const long long m_tiles = ((long long)M + GB_M - 1) / GB_M;
-  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + GB_N - 1) / GB_N, (unsigned)m_tiles);
-  gemm_bf16_kernel<<<grid, 256, G_SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_gemm(gemm_params<bf16>(A, lda, W, ldw, bias, out, ldo, M, N, K, mode, res, ldr,
+                                       rowmap, gates, gate_col, rows_per_sample),
+                     reinterpret_cast<cudaStream_t>(stream));
+}
+
+// the same in float32 (A, W, bias, res and out float; K % 4 == 0)
+int vgqa_gemm_f32(const void* A, long long lda, const void* W, long long ldw, const void* bias,
+                  void* out, long long ldo, int M, int N, int K, int mode,
+                  const void* res, long long ldr, const int* rowmap,
+                  const float* gates, int gate_col, long long rows_per_sample, void* stream) {
+  return launch_gemm(gemm_params<float>(A, lda, W, ldw, bias, out, ldo, M, N, K, mode, res, ldr,
+                                        rowmap, gates, gate_col, rows_per_sample),
+                     reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -48,6 +48,13 @@ _SIGNATURES = {
                               _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
     "vgqa_int4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# the float32 forms take the arguments of their bf16 counterparts
+_SIGNATURES.update({f32: _SIGNATURES[bf16] for f32, bf16 in (
+    ("vgqa_window_attention_f32", "vgqa_window_attention"),
+    ("vgqa_ln_rows_f32", "vgqa_ln_rows"),
+    ("vgqa_gemm_f32", "vgqa_gemm_bf16"),
+    ("vgqa_flash_train_fwd_f32", "vgqa_flash_train_fwd"),
+    ("vgqa_flash_train_bwd_f32", "vgqa_flash_train_bwd"))})
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = {"seconds": 0.0, "ptxas": "", "path": ""}

@@ -20,23 +20,34 @@ the cache ``[Hkv, S, dh]``; key j is masked (-1e30) where
 (``qa/llm.py``): 32 layers x 9 chunks of Lq = 1024 at S = 9216, dh = 128,
 H = 32, Hkv = 8 per 32-frame request.
 
-On the H100 (``csrc/flash_attention.cu``, one template for both): K4 at the
-ViT shape is 2*2*1025^2*64 FLOP per (tile, head), 34 GFLOP per 8-tile call
-against 25 MB of q/k/v/out, and K5 is causal prefill attention at ~150
-GFLOP per chunk against ~40 MB: both are bound by the arithmetic, provided
-the logits and probabilities stay out of device memory (a plain version
-writes and re-reads [Lq, Lk] f32 per head: 1.2 GB per K5 call). The kernel
-keeps them in registers: one block of 4 warps per (row, head, 64 queries),
-keys and values streaming through shared memory in blocks of 64 (the K2
-kernel's whole-row K/V would need ~300 KB at L = 1025, dh = 64), S and P V
-on the tensor cores (``mma.sync`` m16n8k16, f32 accumulation), online
-softmax in f32. Operands are strided views, so the head fold of K4 (heads
-at channel offset h*dh of a token row, q/k/v as slices of the fused qkv
-projection) and the [L, H, dh] -> [H, L, dh] view of K5 cost no copy, and
-K5's GQA mapping reads the shared KV head in place. K5 reads ``length``
-from device memory (no host sync per prefill) and never reads key blocks
-past the causal frontier of its query tile or past ``length``.
-``wgmma``/TMA is later work.
+On the H100 K4 at the ViT shape is 2*2*1025^2*64 FLOP per (tile, head),
+34.4 GFLOP per 8-tile call (0.035 ms of dense bf16) with 134.5 M
+exponentials (~0.032 ms on the SFUs) against 17 MB of q/k/v/out, and K5 is
+causal prefill attention at ~150 GFLOP per chunk against ~40 MB: both are
+bound by the arithmetic, provided the logits and probabilities stay out of
+device memory (a plain version writes and re-reads [Lq, Lk] f32 per head:
+1.2 GB per K5 call).
+
+K4 runs its own Hopper kernel (``csrc/flash_mha_sm90.cu``): a block of three
+consumer warpgroups (64 query rows each, 192 per block) and a producer
+warpgroup (its registers handed to the consumers) whose first warp loads
+the Q tile once and streams K/V tiles of 128 keys by TMA into a 3-stage
+``mbarrier`` ring (128-byte swizzle; 3-D tensor maps over the strided
+views, so the qkv slices are read in place and rows past L are
+zero-filled); S = Q K^T and O += P V are ``wgmma`` (P from registers, V as
+an MN-major operand), each warpgroup keeps S of the next tile and P V of
+the last in flight together, the three take turns to issue them, the
+softmax is online in base 2 (one ``ex2.approx`` per logit), and a
+maskless and a masked variant (a per-key term in shared memory) are
+compiled apart. K5 (``csrc/flash_attention.cu``,
+the template it shares with K3's forward) keeps one block of 4 warps per
+(row, head, 64 queries), keys and values streaming through shared memory
+in blocks of 64 by ``cp.async``, S and P V on ``mma.sync`` m16n8k16 (f32
+accumulation), online softmax in f32. Operands are strided views, so the
+[L, H, dh] -> [H, L, dh] view of K5 costs no copy, and K5's GQA mapping
+reads the shared KV head in place. K5 reads ``length`` from device memory
+(no host sync per prefill) and never reads key blocks past the causal
+frontier of its query tile or past ``length``.
 
 A K4 row whose keys are all masked averages V over its Lk keys (every logit
 is -1e30). The Pallas kernel also counts the zero rows it pads keys with up
@@ -104,6 +115,34 @@ def flash_mha_reference(q, k, v, num_heads: int, key_mask=None,
     return o.transpose(1, 2).reshape(*lead, Lq, dim).to(q.dtype)
 
 
+def flash_mha_operands(q, k, v, num_heads: int, key_mask=None):
+    """The K4 kernel's operands, checked: ``[B, L, C]`` views of q/k/v (a
+    reshape of a row-strided slice keeps its strides), the ``[B, Lq, C]``
+    output and the uint8 key mask ``[B, Lk]`` or None. Raises for a head dim
+    other than 64, mismatched shapes, a dtype other than bf16, and rows the
+    tensor maps cannot address (channel stride 1, other strides multiples
+    of 8 elements, 16-byte aligned)."""
+    *lead, Lq, dim = q.shape
+    Lk = k.shape[-2]
+    dh = dim // num_heads
+    if dim % num_heads or dh != K4_HEAD_DIM:
+        raise ValueError(f"flash_mha kernel takes head dim {K4_HEAD_DIM}, not "
+                         f"{dim} / {num_heads}")
+    if k.shape[-1] != dim or v.shape != k.shape or tuple(k.shape[:-2]) != tuple(lead):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B = 1
+    for s in lead:
+        B *= s
+    q3, k3, v3 = q.reshape(B, Lq, dim), k.reshape(B, Lk, dim), v.reshape(B, Lk, dim)
+    out = torch.empty((B, Lq, dim), dtype=q.dtype, device=q.device)
+    _check_rows("flash_mha", q3, k3, v3, out)
+    mask = None
+    if key_mask is not None:
+        mask = key_mask.to(torch.bool).expand(*lead, Lk).reshape(B, Lk).to(torch.uint8)
+        mask = mask.contiguous().to(q.device)
+    return q3, k3, v3, out, mask
+
+
 def flash_mha(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -122,23 +161,10 @@ def flash_mha(
     dh = dim // num_heads
     if _device_of(q, "flash_mha") == "cpu":
         return flash_mha_reference(q, k, v, num_heads, key_mask, scale)
-    if dh != K4_HEAD_DIM:
-        raise ValueError(f"flash_mha kernel takes head dim {K4_HEAD_DIM}, not {dh}")
-    if k.shape[-1] != dim or v.shape != k.shape or tuple(k.shape[:-2]) != tuple(lead):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    q3, k3, v3, out, mask = flash_mha_operands(q, k, v, num_heads, key_mask)
+    B = q3.shape[0]
     if scale is None:
         scale = dh ** -0.5
-    B = 1
-    for s in lead:
-        B *= s
-    # [B, L, C] views; a reshape of a row-strided slice keeps its strides
-    q3, k3, v3 = q.reshape(B, Lq, dim), k.reshape(B, Lk, dim), v.reshape(B, Lk, dim)
-    out = torch.empty((B, Lq, dim), dtype=q.dtype, device=q.device)
-    _check_rows("flash_mha", q3, k3, v3, out)
-    mask = None
-    if key_mask is not None:
-        mask = key_mask.to(torch.bool).expand(*lead, Lk).reshape(B, Lk).to(torch.uint8)
-        mask = mask.contiguous()
     build.check(build.load_library().vgqa_flash_mha(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), build.ptr(mask),
         B, Lq, Lk, num_heads, dh, q3.stride(0), q3.stride(1), k3.stride(0), k3.stride(1),

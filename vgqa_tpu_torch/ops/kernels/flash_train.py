@@ -47,8 +47,17 @@ at L = 418), and beside them the exponentials: one pass of B L^2 = 89.5 M at
 L = 418 takes ~21 us on the SFUs (16 per SM per clock), more than the
 tensor-core work (~12 us forward) of a 32-deep head.
 
-``flash_mha_train`` launches the kernels for CUDA tensors (bf16 only) and
-runs the plain version for CPU tensors (f32 or bf16); anything else raises.
+In float32 (``TPU.TRAIN_DTYPE float32``, the default) the forward and the
+backward are their float32 forms (``train_fwd_f32_kernel`` in
+``csrc/flash_attention.cu``, ``flash_bwd_f32_kernel`` in
+``csrc/flash_train.cu``): FFMA products and nothing rounded, as the Pallas
+kernels at f32. The forward draws the keep bits with the same Philox calls,
+so bf16 and f32 calls with the same seed and shape keep the same elements.
+The f32 backward is one launch whose blocks own either a key (dk, dv) or a
+query (dq) of a folded row: no atomics, one writer per output element.
+
+``flash_mha_train`` launches the kernels for CUDA tensors (bf16 or f32)
+and runs the plain version for CPU tensors; anything else raises.
 ``flash_mha_train.fwd_launches`` / ``.bwd_launches`` count the launches.
 """
 
@@ -61,6 +70,7 @@ import numpy as np
 import torch
 
 from . import build
+from .dtypes import check_kernel_dtype
 
 NEG_INF = -1e30
 MAX_SEQ_PAD = 1024       # the Pallas kernel's full-S block limit
@@ -219,9 +229,7 @@ def unfold_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def _check_cuda(q, k, v, mask, heads: int) -> None:
-    if q.dtype != torch.bfloat16:
-        raise TypeError("flash_mha_train kernel takes bfloat16 (train with "
-                        f"TPU.TRAIN_DTYPE bfloat16), not {q.dtype}")
+    check_kernel_dtype("flash_mha_train kernel", q.dtype)
     for t in (k, v):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError("q, k and v must share dtype and device")
@@ -268,7 +276,9 @@ def flash_train_fwd(q, k, v, mask, seed: int, rate: float, scale: float, heads: 
     bits = None
     if drop:
         bits = torch.empty((W * heads, Lq, (Lk + 31) // 32), dtype=torch.int32, device=q.device)
-    build.check(build.load_library().vgqa_flash_train_fwd(
+    lib = build.load_library()
+    entry = lib.vgqa_flash_train_fwd_f32 if q.dtype == torch.float32 else lib.vgqa_flash_train_fwd
+    build.check(entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         build.ptr(bits), build.ptr(mask_u8), W, Lq, Lk, heads, float(scale), seed32,
         thresh, drop, inv, build.stream_handle(q.device)), "flash_mha_train forward")
@@ -302,7 +312,9 @@ def flash_train_bwd(q, k, v, o, do, lse, keep_bits, mask, rate: float, scale: fl
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     mask_u8, _, _, drop, inv = _kernel_args(mask, 0, rate)
     bits = keep_bits.contiguous() if drop else None
-    build.check(build.load_library().vgqa_flash_train_bwd(
+    lib = build.load_library()
+    entry = lib.vgqa_flash_train_bwd_f32 if q.dtype == torch.float32 else lib.vgqa_flash_train_bwd
+    build.check(entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.contiguous().data_ptr(), build.ptr(bits), build.ptr(mask_u8), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), W, Lq, Lk, heads, float(scale), drop, inv,

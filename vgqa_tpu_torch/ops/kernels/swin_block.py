@@ -55,9 +55,16 @@ difference: the TPU kernel skips the softmax max-subtraction and clamps
 logits at 80 (a VPU saving); this port subtracts the running row max
 instead, which is exact for any logits.
 
+In float32 (``TPU.TRAIN_DTYPE float32``, the default, and
+``TPU.COMPUTE_DTYPE float32``) the chain runs the same seven launches
+through the kernels' float32 forms (``ln_rows_kernel<float>``,
+``gemm_f32_kernel``, ``window_attn_f32_kernel``): FFMA products, every
+rounding point an identity, as the JAX kernel at f32. That chain is bound
+by the FFMA rate (67 TFLOP/s on an H100 SXM).
+
 ``swin_block_canvas`` / ``swin_block_fused`` launch the chain for CUDA
-tensors (bf16, head dim 32) and run ``swin_block_canvas_reference`` /
-``swin_block_fused_reference`` for CPU tensors; anything else raises.
+tensors (bf16 or f32, head dim 32) and run ``swin_block_canvas_reference``
+/ ``swin_block_fused_reference`` for CPU tensors; anything else raises.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ import torch.nn.functional as F
 
 from . import build
 from . import window_attention as wa
+from .dtypes import check_kernel_dtype
 
 LN_EPS = 1e-5
 _EPI_BIAS, _EPI_GELU, _EPI_RES_GATHER, _EPI_RES_SCATTER = 0, 1, 2, 3
@@ -220,7 +228,8 @@ def _gemm(lib, stream, a, w_nk, bias, out, ldo, mode, res=None, ldr=0,
     if (a.stride(1) != 1 or a.stride(0) % 8 or K % 8 or N % 8 or ldo % 8 or ldr % 8
             or not w_nk.is_contiguous()):
         raise ValueError("gemm kernel needs 16-byte aligned rows (K, N, strides % 8 == 0)")
-    build.check(lib.vgqa_gemm_bf16(
+    entry = lib.vgqa_gemm_f32 if a.dtype == torch.float32 else lib.vgqa_gemm_bf16
+    build.check(entry(
         a.data_ptr(), a.stride(0), w_nk.data_ptr(), w_nk.stride(0),
         build.ptr(bias), out.data_ptr(), ldo, M, N, K, mode,
         build.ptr(res), ldr, build.ptr(rowmap), build.ptr(gates), gate_col,
@@ -228,7 +237,8 @@ def _gemm(lib, stream, a, w_nk, bias, out, ldo, mode, res=None, ldr=0,
 
 
 def _ln_rows(lib, stream, x, rowmap, scale, bias, valid, n_valid, out, M, C):
-    build.check(lib.vgqa_ln_rows(
+    entry = lib.vgqa_ln_rows_f32 if x.dtype == torch.float32 else lib.vgqa_ln_rows
+    build.check(entry(
         x.data_ptr(), build.ptr(rowmap), scale.data_ptr(), bias.data_ptr(),
         build.ptr(valid), n_valid, out.data_ptr(), M, C, LN_EPS, stream),
         "swin block layernorm")
@@ -241,10 +251,7 @@ def _takes_kernel(name: str, x: torch.Tensor, C: int, num_heads: int) -> bool:
         return False
     if x.device.type != "cuda":
         raise RuntimeError(f"{name} runs on cpu or cuda, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bfloat16 (serve with TPU.COMPUTE_DTYPE "
-                        "bfloat16, train with TPU.TRAIN_DTYPE bfloat16), "
-                        f"not {x.dtype}")
+    check_kernel_dtype(f"{name} kernel", x.dtype)
     if C // num_heads != wa.HEAD_DIM or C % num_heads:
         raise ValueError(f"{name} kernel takes head dim {wa.HEAD_DIM}")
     return True
@@ -261,13 +268,13 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
      ln2_scale, ln2_bias, wfc1, bfc1, wfc2, bfc2) = weights
     C = src.shape[-1]
     M = W * N
-    dev, bf = src.device, torch.bfloat16
+    dev, dt = src.device, src.dtype     # the chain runs in the input's dtype
 
     def vec(t):
-        return t.to(device=dev, dtype=bf).contiguous()
+        return t.to(device=dev, dtype=dt).contiguous()
 
     def weight_nk(w):                     # [in, out] -> [out, in] rows
-        return w.to(device=dev, dtype=bf).t().contiguous()
+        return w.to(device=dev, dtype=dt).t().contiguous()
 
     wq, bq = _fold_q_scale(wqkv, bqkv, C, wa.HEAD_DIM ** -0.5)
     n_valid = 1
@@ -279,22 +286,22 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
 
     lib = build.load_library()
     st = build.stream_handle(dev)
-    h = torch.empty((M, C), dtype=bf, device=dev)
+    h = torch.empty((M, C), dtype=dt, device=dev)
     _ln_rows(lib, st, src, read_map, vec(ln1_scale), vec(ln1_bias), valid, n_valid,
              h, M, C)
-    qkv = torch.empty((M, 3 * C), dtype=bf, device=dev)
+    qkv = torch.empty((M, 3 * C), dtype=dt, device=dev)
     _gemm(lib, st, h, weight_nk(wq), vec(bq), qkv, 3 * C, _EPI_BIAS)
-    attn = torch.empty((M, C), dtype=bf, device=dev)
+    attn = torch.empty((M, C), dtype=dt, device=dev)
     q3 = qkv.view(W, N, 3 * C)
     wa.launch(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:],
               attn.view(W, N, C), num_heads, 1.0, bias=vec(bias), region=region)
-    x1 = torch.empty((M, C), dtype=bf, device=dev)
+    x1 = torch.empty((M, C), dtype=dt, device=dev)
     _gemm(lib, st, attn, weight_nk(wproj), vec(bproj), x1, C, _EPI_RES_GATHER,
           res=src, ldr=C, rowmap=read_map, gates=gates, gate_col=0,
           rows_per_sample=rows_per_sample)
-    h2 = torch.empty((M, C), dtype=bf, device=dev)
+    h2 = torch.empty((M, C), dtype=dt, device=dev)
     _ln_rows(lib, st, x1, None, vec(ln2_scale), vec(ln2_bias), None, 1, h2, M, C)
-    f = torch.empty((M, wfc1.shape[1]), dtype=bf, device=dev)
+    f = torch.empty((M, wfc1.shape[1]), dtype=dt, device=dev)
     _gemm(lib, st, h2, weight_nk(wfc1), vec(bfc1), f, f.shape[1], _EPI_GELU)
     _gemm(lib, st, f, weight_nk(wfc2), vec(bfc2), out, C, _EPI_RES_SCATTER,
           res=x1, ldr=C, rowmap=write_map, gates=gates, gate_col=1,

@@ -23,6 +23,12 @@ the logits nor the probabilities reach memory. P is rounded to bf16 as
 the P.V operand (the TPU kernel does the same); the row max and sum stay
 f32. ``wgmma``/TMA is later work.
 
+In float32 (``window_attn_f32_kernel``) nothing is rounded and every
+product is an FFMA (single-pass TF32 would not be float32): one thread per
+query row, keys and values streamed through shared memory in chunks of 32,
+the same online softmax. Bound there by the FFMA rate (67 TFLOP/s on an
+H100 SXM against 989 for bf16 on the tensor cores).
+
 ``window_attention`` launches the kernel for CUDA tensors and runs
 ``window_attention_reference`` for CPU tensors; anything else raises.
 """
@@ -34,6 +40,7 @@ from typing import Optional
 import torch
 
 from . import build
+from .dtypes import check_kernel_dtype
 
 NEG_INF = -1e30
 HEAD_DIM = 32          # the kernel's head dim (every caller on the path)
@@ -91,8 +98,8 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
     q/k/v/out are ``[W, N, >=C]`` views whose last dim is contiguous; heads
     sit at channel offsets h*32 of each token row."""
     W, N = q.shape[0], q.shape[1]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"window_attention kernel takes bfloat16, not {q.dtype}")
+    check_kernel_dtype("window_attention kernel", q.dtype)
+    f32 = q.dtype == torch.float32
     for t in (k, v, out):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError("q, k, v and out must share dtype and device")
@@ -101,7 +108,7 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
         if t.stride(-1) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
             raise ValueError("window_attention kernel needs 16-byte aligned, "
                              "channel-contiguous rows")
-    if not 1 <= N <= MAX_TOKENS:
+    if not 1 <= N <= MAX_TOKENS:      # the bf16 kernel's shared memory; the f32 one streams
         raise ValueError(f"window_attention kernel takes 1..{MAX_TOKENS} tokens, not {N}")
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
@@ -119,7 +126,8 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
         if key_valid.shape[1] != N or W % n_kvalid:
             raise ValueError(f"key_valid shape {tuple(key_valid.shape)} does not fit {W}x{N}")
     lib = build.load_library()
-    err = lib.vgqa_window_attention(
+    entry = lib.vgqa_window_attention_f32 if f32 else lib.vgqa_window_attention
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         W, N, num_heads,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),

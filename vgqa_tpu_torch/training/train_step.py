@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.dropout import DropoutRng
+from ..ops.kernels.dtypes import check_kernel_dtype
 from ..utils.containers import TextBatch, VideoBatch, normalize_uint8_video
 from .optimizer import GroupedAdamW, update_ema
 
@@ -88,10 +89,9 @@ def make_train_step(loss_fn, weight_dict: Dict[str, float],
 
     def check_dtype(state: TrainState, video: VideoBatch) -> None:
         cfg = getattr(state.model, "cfg", None)
-        if (video.frames.device.type == "cuda" and getattr(cfg, "use_pallas_attention", False)
-                and compute_dtype != torch.bfloat16):
-            raise TypeError("the CUDA kernels of the training path take bfloat16: set "
-                            "TPU.TRAIN_DTYPE bfloat16 (or turn TPU.USE_PALLAS_ATTENTION off)")
+        if video.frames.device.type == "cuda" and getattr(cfg, "use_pallas_attention", False):
+            check_kernel_dtype("the CUDA kernels of the training path",
+                               compute_dtype or torch.float32)
 
     def loss_and_grads(state: TrainState, video: VideoBatch, text: TextBatch,
                        targets: Dict, seed: int):
