@@ -5,13 +5,16 @@
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; fails at once when no CUDA device is visible.
 2. Builds the hand-written kernels from vgqa_tpu_torch/csrc (one nvcc per
-   source, started together) and prints the build seconds.
+   source, started together) and prints the build seconds; fails when
+   ptxas serialises a wgmma for lack of registers (C7511, C7512, C7520).
 3. Checks each kernel against its plain PyTorch version (float32 on the same
    bf16 inputs) at the shapes its path gives it, with the error relative to
    max |ref| (fails above 3e-2) and the times (CUDA events) of the kernel,
    the plain version and, where one PyTorch call computes the same function,
    that call (``library_ms``; the port never calls it):
-   K2 window_attention at the encoder's serving rows; K1 swin_block_canvas
+   K2 window_attention at the encoder's serving rows (S = 124 and 418,
+   key_valid: window_attn_sm90_kernel, one per call), also by device time
+   (profiler) beside SDPA's and the exponential floor; K1 swin_block_canvas
    at the 12 serving block shapes (V = 2) and, with DropPath gates that
    include zeros, at the 8 training stage shapes (B = 1); K1'
    swin_block_fused on the windows of the rolled canvas at the 9 serving
@@ -66,7 +69,9 @@
    call), unmasked and with a key mask, with its device time and SDPA's
    (profiler) beside the bound and the exponential floor; K5 flash_gqa_causal at H 32 / Hkv 8
    / dh 128, Lq 1024, S 9216, length 8700, checked at q_offset 0 and 8192
-   and timed at all 9 chunk offsets of a 32-frame prefill; K6 int4_matmul
+   and timed at all 9 chunk offsets of a 32-frame prefill (flash_gqa_sm90_kernel,
+   one per call; CUDA events and device time, SDPA's likewise, and the
+   exponential floor); K6 int4_matmul
    at the four projection shapes and M = 1, 2, 64, its device time for
    one int4 decode token (224 products at M = 1) under the profiler and its
    host time per call (1,000 back-to-back calls at M = 1, 4096 x 1024).
@@ -97,6 +102,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,11 +153,20 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+K2_NAMES = ("window_attn_sm90_kernel",)    # K2's device kernel (encoder form)
+
+
 def check_window_attention(dev, g):
+    """K2 at the encoder's serving rows (W 128, 8 heads of 32, key_valid) at
+    S = 124 and 418: times by CUDA events and device time per call
+    (profiler) for K2 and for SDPA (bool key mask) in the same process;
+    beside the bound, the exponential floor (one ex2 per logit on the
+    SFUs). One device kernel per call, the encoder form's."""
     from vgqa_tpu_torch.ops.kernels.window_attention import (
         window_attention, window_attention_reference)
 
     rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for S in (124, 418):                  # 224 px and 420 px encoder rows
         W, C, H = 128, 256, 8
         q, k, v = (torch.randn(W, S, C, generator=g, device=dev).bfloat16()
@@ -163,23 +178,41 @@ def check_window_attention(dev, g):
         ref = window_attention_reference(*f32, key_valid=kv, num_heads=H)
         torch.cuda.synchronize()
         rel, mae = rel_err(out, ref)
-        ms = cuda_ms(lambda: window_attention(q, k, v, key_valid=kv, num_heads=H))
+        del out, ref
+
+        def kernel():
+            return window_attention(q, k, v, key_valid=kv, num_heads=H)
+
+        ms = cuda_ms(kernel)
+        n_dev, n_k2, dev_ms = device_kernels(kernel, names=K2_NAMES,
+                                             counter=lambda: window_attention.launches)[:3]
         plain = cuda_ms(lambda: window_attention_reference(*f32, key_valid=kv, num_heads=H))
 
         def heads(t):
             return t.reshape(W, S, H, C // H).transpose(1, 2)
 
         mask = (kv > 0)[:, None, None, :]
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), attn_mask=mask))
+
+        def library():
+            return sdpa(heads(q), heads(k), heads(v), attn_mask=mask)
+
+        lib = cuda_ms(library)
+        lib_dev = device_kernels(library)[3]
         b_ms, b_by = bound(4.0 * W * S * S * C, 4 * W * S * C * 2 + W * S * 4)
-        rows.append({"S": S, "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain,
-                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        exp_floor = 1e3 * W * H * S * S / EXP_PER_S
+        rows.append({"S": S, "rel_err": rel, "max_abs_err": mae, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain, "library_ms": lib, "library_device_ms": lib_dev,
+                     "bound_ms": b_ms, "bound_by": b_by, "exp_floor_ms": exp_floor})
         print(f"K2 window_attention W=128 S={S} C=256 h=8: rel_err {rel:.3e} "
-              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  "
-              f"sdpa {lib:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+              f"max_abs_err {mae:.3e}  kernel {ms:.4f} ms (events), device {dev_ms:.4f} ms per "
+              f"call (profiler; {n_dev:.0f} device kernels, {n_k2:.0f} K2)  plain(f32) "
+              f"{plain:.3f} ms  sdpa {lib:.4f} ms (events), device {lib_dev:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by}), exp floor {exp_floor:.4f} ms")
         if not rel < REL_TOL:
             raise AssertionError(f"window_attention S={S}: rel_err {rel} >= {REL_TOL}")
+        if n_k2 != 1:
+            raise AssertionError(f"window_attention S={S}: {n_k2} {K2_NAMES[0]} per call")
+        del f32
     return rows
 
 
@@ -543,9 +576,15 @@ def check_flash_mha(dev, g):
 QA_CHUNKS = 9                # 32-frame prefill: Lp = 9216 in chunks of 1024
 
 
+K5_NAMES = ("flash_gqa_sm90_kernel",)      # K5's device kernel
+
+
 def check_flash_gqa(dev, g):
     """K5 at the 32-frame prefill: H 32, Hkv 8, dh 128, Lq 1024, S 9216,
-    length 8700; checked at q_offset 0 and 8192, timed at all 9 offsets."""
+    length 8700; checked at q_offset 0 and 8192, timed at all 9 offsets by
+    CUDA events and by device time (profiler), SDPA (``enable_gqa``, bool
+    mask) likewise in the same process; beside the bound, the exponential
+    floor (one ex2 per visible logit). One device kernel per call, K5's."""
     from vgqa_tpu_torch.ops.kernels.flash_attention import (
         flash_gqa_causal, flash_gqa_causal_reference)
 
@@ -554,6 +593,7 @@ def check_flash_gqa(dev, g):
     k, v = (torch.randn(Hkv, S, D, generator=g, device=dev).bfloat16() for _ in range(2))
     n = torch.tensor(length, device=dev)
     f32 = [t.float() for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for i in range(QA_CHUNKS):
         off = i * Lq
@@ -566,24 +606,47 @@ def check_flash_gqa(dev, g):
             del out, ref
             if not rel < REL_TOL:
                 raise AssertionError(f"flash_gqa_causal q_offset={off}: rel_err {rel} >= {REL_TOL}")
-        ms = cuda_ms(lambda: flash_gqa_causal(q, k, v, off, n))
+
+        def kernel():
+            return flash_gqa_causal(q, k, v, off, n)
+
+        ms = cuda_ms(kernel)
+        n_dev, n_k5, dev_ms = device_kernels(kernel, names=K5_NAMES,
+                                             counter=lambda: flash_gqa_causal.launches)[:3]
         plain = cuda_ms(lambda: flash_gqa_causal_reference(*f32, off, n), reps=2)
         qpos = off + torch.arange(Lq, device=dev)
         kpos = torch.arange(S, device=dev)
         am = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < length)
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[None], k[None], v[None], attn_mask=am, enable_gqa=True))
+
+        def library():
+            return sdpa(q[None], k[None], v[None], attn_mask=am, enable_gqa=True)
+
+        lib = cuda_ms(library)
+        lib_dev = device_kernels(library)[3]
         # operations over the keys this chunk's queries may see; bytes: q,
         # out, and the K/V rows up to the causal frontier (and length)
         valid = sum(min(off + r + 1, length) for r in range(Lq))
         kread = min(off + Lq, length, S)
         b_ms, b_by = bound(4.0 * H * D * valid, 2 * H * Lq * D * 2 + 2 * Hkv * kread * D * 2)
+        exp_floor = 1e3 * H * valid / EXP_PER_S
         rows.append({"q_offset": off, "rel_err": rel, "max_abs_err": mae, "ms": ms,
-                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+                     "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib,
+                     "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": b_by,
+                     "exp_floor_ms": exp_floor})
         print(f"K5 flash_gqa_causal H32/Hkv8/dh128 Lq 1024 S 9216 len {length} q_offset {off}: "
               + ("" if rel is None else f"rel_err {rel:.3e} max_abs_err {mae:.3e}  ")
-              + f"kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  sdpa {lib:.3f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              + f"kernel {ms:.4f} ms (events), device {dev_ms:.4f} ms (profiler; {n_dev:.0f} "
+              f"device kernels, {n_k5:.0f} K5)  plain(f32) {plain:.3f} ms  sdpa {lib:.4f} ms "
+              f"(events), device {lib_dev:.4f} ms  bound {b_ms:.4f} ms ({b_by}), exp floor "
+              f"{exp_floor:.4f} ms")
+        if n_k5 != 1:
+            raise AssertionError(f"flash_gqa_causal q_offset={off}: {n_k5} {K5_NAMES[0]} per call")
+    print(f"K5 per 32-frame prefill (32 layers x the 9 chunks): device "
+          f"{32 * sum(r['device_ms'] for r in rows):.2f} ms, events "
+          f"{32 * sum(r['ms'] for r in rows):.2f} ms; SDPA device "
+          f"{32 * sum(r['library_device_ms'] for r in rows):.2f} ms; bound "
+          f"{32 * sum(r['bound_ms'] for r in rows):.2f} ms, exp floor "
+          f"{32 * sum(r['exp_floor_ms'] for r in rows):.2f} ms")
     del f32
     torch.cuda.empty_cache()
     return rows
@@ -1434,7 +1497,7 @@ def train_f32(dev, card):
         print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
     ran = all(any(k in n for n in names) for k in F32_K1_NAMES[1:] + F32_K3_NAMES)
     bf16_ran = [n for n in names if "gemm_bf16_kernel" in n or "attn_fwd_kernel<32" in n
-                or "flash_bwd_kernel" in n]
+                or "flash_bwd_kernel" in n or K2_NAMES[0] in n]
     if not ran or bf16_ran:
         raise AssertionError(f"f32 step: f32 kernels ran {ran}, bf16 kernels {bf16_ran}")
     del run["trainer"], state
@@ -1451,8 +1514,8 @@ def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
 
     return {"name": name, "route": "cuda",
             "source": {"int4_matmul": "vgqa_tpu_torch/csrc/int4_matmul.cu",
-                       "flash_mha": "vgqa_tpu_torch/csrc/flash_mha_sm90.cu"}.get(
-                           name, "vgqa_tpu_torch/csrc/flash_attention.cu"),
+                       "flash_mha": "vgqa_tpu_torch/csrc/flash_mha_sm90.cu",
+                       "flash_gqa_causal": "vgqa_tpu_torch/csrc/flash_gqa_sm90.cu"}[name],
             "replaces": replaces, "launches": launches[name],
             "launches_by_path": {"serve": 0, "train": 0, "qa": launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in all_rows if r["max_abs_err"] is not None),
@@ -1650,9 +1713,14 @@ def main() -> int:
     build.load_library()
     print(f"kernels built+loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_log['seconds']:.2f} s) -> {build.build_log['path']}")
+    serialised = []
     for line in build.build_log["ptxas"].splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+        if re.search(r"\(C75(11|12|20)\)", line):     # wgmma serialised for lack of registers
+            serialised.append(line.strip())
+    if serialised:
+        raise AssertionError("ptxas serialised wgmma:\n" + "\n".join(serialised))
 
     g = torch.Generator(device=dev).manual_seed(0)
     k2_rows = check_window_attention(dev, g)
@@ -1748,7 +1816,9 @@ def main() -> int:
                  "vs_k1_max_abs": max(r["fused_vs_k1_max_abs"] for r in f32_k1),
                  "ms_420_shapes": sum(r["fused_ms"] * r["per_step"] for r in f32_k1)}},
         {"name": "window_attention", "route": "cuda",
-         "source": "vgqa_tpu_torch/csrc/kernels.cu",
+         "source": "vgqa_tpu_torch/csrc/window_attn_sm90.cu (key-mask and maskless form: "
+                   "the encoder's calls); vgqa_tpu_torch/csrc/kernels.cu (with bias or "
+                   "region ids; float32)",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
          "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"],
          "launches_by_path": {"serve": serve_launches["window_attention"],
@@ -1756,6 +1826,13 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"],
+         "device_kernel": K2_NAMES[0], "device_ms": 6 * k2["device_ms"],
+         "library_device_ms": 6 * k2["library_device_ms"],
+         "exp_floor_ms": 6 * k2["exp_floor_ms"],
+         "call_device_ms": {r["S"]: r["device_ms"] for r in k2_rows},
+         "call_library_device_ms": {r["S"]: r["library_device_ms"] for r in k2_rows},
+         "call_bound_ms": {r["S"]: r["bound_ms"] for r in k2_rows},
+         "call_exp_floor_ms": {r["S"]: r["exp_floor_ms"] for r in k2_rows},
          "f32": f32_k2},
         {"name": "flash_mha_train", "route": "cuda",
          "source": "vgqa_tpu_torch/csrc/flash_attention.cu (forward), "
@@ -1805,15 +1882,23 @@ def main() -> int:
              exp_floor_ms=qa["per_chat"]["flash_mha"] * k4["exp_floor_ms"],
              call_device_ms=k4["device_ms"], call_library_device_ms=k4["library_device_ms"],
              masked_call_device_ms=k4_rows[1]["device_ms"]),
-        qa_row("flash_gqa_causal", "vgqa_tpu/ops/pallas/flash_attention.py:242", qa_l,
-               k5_rows, 32, k5_rows),
+        dict(qa_row("flash_gqa_causal", "vgqa_tpu/ops/pallas/flash_attention.py:242", qa_l,
+                    k5_rows, 32, k5_rows),
+             device_kernel=K5_NAMES[0],
+             device_ms=32 * sum(r["device_ms"] for r in k5_rows),
+             library_device_ms=32 * sum(r["library_device_ms"] for r in k5_rows),
+             exp_floor_ms=32 * sum(r["exp_floor_ms"] for r in k5_rows),
+             chunk_device_ms=[r["device_ms"] for r in k5_rows],
+             chunk_library_device_ms=[r["library_device_ms"] for r in k5_rows]),
         dict(qa_row("int4_matmul", "vgqa_tpu/ops/pallas/int4_matmul.py:145", qa_l,
                     [next(r for r in k6_rows if (r["K"], r["N"], r["M"]) == (k, n, 1))
                      for k, n, _ in QA_PROJ], 32, k6_rows),
              device_ms_per_token=k6_token_ms, host_us_per_call=k6_host_us),
     ]}
     print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
-          "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124), over one "
+          "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124; "
+          "device_ms / library_device_ms / exp_floor_ms the same by device time, call_* "
+          "per call at S=124 and 418), over one "
           "train step "
           "at 64f@224 for K3 (6 forward + 6 backward calls at [512, 124, 32], rate 0.1; "
           "library: SDPA fwd+bwd at rate 0; *_device_ms the same by device time (profiler), "
@@ -1837,7 +1922,7 @@ def main() -> int:
           f"step {tr_swin['step_ms'][-1]:.1f} ms, peak {tr_swin['peak_gb']:.2f} GiB; "
           f"K4 over one 32-frame chat (96 calls at "
           "[128, 1025, 64], unmasked), K5 over one 32-frame prefill (32 layers x the 9 "
-          "chunk offsets), K6 over one int4 decode token at M = 1 (32 layers x 7 "
+          "chunk offsets; device_ms / library_device_ms by device time, chunk_* per chunk), K6 over one int4 decode token at M = 1 (32 layers x 7 "
           "projections; library: see the K6 lines); QA launches over the bf16, int4, "
           f"sampled and batched chats; QA last-prompt-token logits kernel vs plain routes "
           f"rel err bf16 {qa['rel_bf16']:.3e}, int4 {qa['rel_int4']:.3e} (K4, K5); int4 "

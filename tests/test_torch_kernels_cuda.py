@@ -427,3 +427,92 @@ def test_flash_mha_sm90_shapes_cuda(cuda, L, B, H, mask_kind):
     if mask_kind == "full_row":
         mean = v[B - 1].float().mean(0)
         assert (out[B - 1].float() - mean).abs().max().item() < 2e-2
+
+
+# ---- K2 and K5 on their Hopper kernels at the ragged shapes they must handle ----
+# (the same cases as tests/test_torch_attention_shapes.py, which holds the
+# plain versions against the Pallas kernels on the CPU)
+K2_RAGGED_N = [1, 16, 17, 124, 128, 129, 130, 418]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("N", K2_RAGGED_N)
+def test_window_attention_sm90_shapes_cuda(cuda, N, masked):
+    """K2's encoder form (key_valid or no mask: window_attn_sm90_kernel) at
+    8 rows x 8 heads of 32: with key_valid of 2 rows repeated over the 8
+    (row w reads w % 2) and row 1's keys all masked, whose windows average V
+    over their N keys; one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(N + 1000 * masked)
+    W, H = 8, 8
+    qkv = torch.randn(W, N, 3 * H * 32, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split(H * 32, dim=-1)
+    kv = None
+    if masked:
+        kv = (torch.rand(2, N, generator=g, device=cuda) > 0.3).float()
+        kv[0, 0] = 1.0
+        kv[1] = 0.0
+    before = window_attention.launches
+    out = window_attention(q, k, v, key_valid=kv, num_heads=H)
+    ref = window_attention_reference(q.float(), k.float(), v.float(), key_valid=kv,
+                                     num_heads=H)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    assert out.shape == (W, N, H * 32) and out.dtype == torch.bfloat16
+    assert _rel_err(out, ref) < CUDA_REL
+    if masked:
+        mean = v[1::2].float().mean(1, keepdim=True).expand(-1, N, -1)
+        assert (out[1::2].float() - mean).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [4, 1])
+@pytest.mark.parametrize("length", [600, 8700, 9216])
+@pytest.mark.parametrize("q_offset", [0, 40, 1000, 8192])
+def test_flash_gqa_sm90_prefill_cuda(cuda, q_offset, length, group):
+    """K5 at the prefill widths (Hkv 8, dh 128, Lq 1024, S 9216; H 32 at
+    group 4, 8 at group 1) with q as the [L, H, dh] -> [H, L, dh] view the
+    LLM passes, at chunk offsets on and off the tile grid and lengths inside
+    the chunk, past it and at S."""
+    g = torch.Generator(device=cuda).manual_seed(q_offset + length + group)
+    Hkv, Lq, S, dh = 8, 1024, 9216, 128
+    H = Hkv * group
+    q = torch.randn(Lq, H, dh, generator=g, device=cuda).bfloat16().transpose(0, 1)
+    k, v = (torch.randn(Hkv, S, dh, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n = torch.tensor(length, device=cuda)
+    before = flash_gqa_causal.launches
+    out = flash_gqa_causal(q, k, v, q_offset, n)
+    ref = flash_gqa_causal_reference(q.float(), k.float(), v.float(), q_offset, n)
+    torch.cuda.synchronize()
+    assert flash_gqa_causal.launches == before + 1
+    assert out.shape == (H, Lq, dh) and out.dtype == torch.bfloat16
+    assert _rel_err(out, ref) < CUDA_REL
+
+
+# (H, Hkv, Lq, S, q_offset, length): offsets off the 64 / 128 grid, length
+# below the chunk's end and on a tile boundary, Lq off the tile, groups 4 and 1
+K5_RAGGED = [
+    (4, 1, 70, 300, 40, 300),
+    (4, 4, 70, 300, 40, 100),
+    (8, 2, 130, 400, 200, 256),
+    (2, 2, 130, 400, 200, 384),
+    (4, 1, 130, 300, 0, 128),
+    (4, 4, 70, 300, 128, 300),
+    (8, 2, 70, 260, 190, 260),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,Lq,S,q_offset,length", K5_RAGGED)
+def test_flash_gqa_sm90_ragged_cuda(cuda, H, Hkv, Lq, S, q_offset, length):
+    """K5 at the ragged cases, q contiguous [H, Lq, 128] and as the
+    transposed view of [Lq, H, 128]."""
+    g = torch.Generator(device=cuda).manual_seed(H + Lq + q_offset + length)
+    q = torch.randn(Lq, H, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(Hkv, S, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    n = torch.tensor(length, device=cuda)
+    for qv in (q.transpose(0, 1), q.transpose(0, 1).contiguous()):
+        out = flash_gqa_causal(qv, k, v, q_offset, n)
+        ref = flash_gqa_causal_reference(qv.float(), k.float(), v.float(), q_offset, n)
+        torch.cuda.synchronize()
+        assert _rel_err(out, ref) < CUDA_REL

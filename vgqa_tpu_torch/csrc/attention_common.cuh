@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (flash_attention.cu: K3's
-// forward, K4, K5; flash_train.cu: K3's backward): bf16 pairs, mma.sync
-// m16n8k16, quad reductions, cp.async and ldmatrix.
+// forward; flash_train.cu: K3's backward; the Hopper kernels of K2, K4 and
+// K5 take the bf16 pairs, quad reductions and ex2): bf16 pairs, mma.sync
+// m16n8k16, quad reductions, ex2, cp.async and ldmatrix.
 
 #pragma once
 

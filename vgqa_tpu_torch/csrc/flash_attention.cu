@@ -1,35 +1,26 @@
-// Attention forward, behind a plain C interface: the port of
-// vgqa_tpu/ops/pallas/flash_attention.py:flash_gqa_causal (K5, Pallas
-// _flash_gqa_causal_kernel) and the forward of
-// vgqa_tpu/ops/pallas/flash_train.py (K3 flash_mha_train, Pallas _fwd_kernel;
-// its backward is flash_train.cu). K4 flash_mha has its own Hopper kernel
-// in flash_mha_sm90.cu.
+// K3's attention forward, behind a plain C interface: the forward of
+// vgqa_tpu/ops/pallas/flash_train.py (K3 flash_mha_train, Pallas
+// _fwd_kernel; its backward is flash_train.cu), bf16 and float32. K4
+// flash_mha and K5 flash_gqa_causal have their own Hopper kernels,
+// flash_mha_sm90.cu and flash_gqa_sm90.cu.
 //
-// One kernel template, attn_fwd_kernel<D, MODE>, instantiated for K5 at
-// D = 128 (causal) and K3 at D = 32 (non-causal, key mask, lse and
-// dropout): a block of 4 warps owns one
-// (batch row, query head, tile of 64 queries); each warp holds 16 query
-// rows as mma.sync A fragments, keys and values stream through shared memory
-// in blocks of 64 rows, double-buffered with cp.async (the next block loads
+// The bf16 kernel, attn_fwd_kernel<32, MODE_K3>: a block of 4 warps owns
+// one (batch row, head, tile of 64 queries); each warp holds 16 query rows
+// as mma.sync A fragments, keys and values stream through shared memory in
+// blocks of 64 rows, double-buffered with cp.async (the next block loads
 // while the current one computes), S = q k^T and P V run on the tensor cores
 // (m16n8k16, bf16 in, f32 accumulate; V's fragments come from its row-major
 // tile through ldmatrix.trans) and the softmax is online (running max and
 // sum in f32), so neither the [Lq, Lk] logits nor the probabilities reach
-// device memory and any key length fits. P is rounded to bf16 as the P V
-// operand, as the Pallas kernels do on the TPU.
+// device memory. P is rounded to bf16 as the P V operand, as the Pallas
+// kernel does on the TPU.
 //
-// Operands are addressed by strides, so the callers pass views:
+// Operands are addressed by strides:
 //   q[b, h, i, d] = q + b*q_sb + h*q_sh + i*q_sl + d   (d contiguous)
-//   k[b, hk, j, d], v likewise with hk = h / group (GQA: no repeat of K/V)
+//   k[b, hk, j, d], v likewise with hk = h / group (group 1 here)
 //   out[b, h, i, d] likewise.
 // Rows must be 16-byte aligned (the loads move 8 bf16 at a time).
 //
-// K5 (MODE_K5): query row i sits at position q_offset + i; a key j is
-// masked (-1e30) when j > q_offset + i or j >= length, where length is read
-// from device memory (no host sync). Key blocks past the tile's causal
-// frontier, and past length when length >= 1, are never read: with
-// length >= 1 key 0 is valid for every row, so the skipped keys would only
-// have added exact zeros.
 // K3 (MODE_K3): keys whose mask byte is 0 get -1e30 (finite, as in Pallas),
 // keys past Lk do not exist (-inf); on the packed [W, L, H*32] layout, with the
 // logits in base 2 (log2(e) folded into the scale, one ex2 per element),
@@ -43,8 +34,7 @@
 // elements. The kernel writes the decisions as bits ([W*H, Lq, ceil(Lk/32)]
 // uint32, bit j % 32 of word j / 32, zero past Lk), which the backward
 // reads, so the mask is drawn once per training step. l sums the kept and
-// the dropped probabilities; out = (kept P) V / l / (1 - rate). K5
-// computes in base e (expf).
+// the dropped probabilities; out = (kept P) V / l / (1 - rate).
 
 #include "attention_common.cuh"
 #include "f32_rows.cuh"
@@ -53,7 +43,9 @@ using namespace vgqa_attn;
 
 namespace {
 
-constexpr int MODE_K5 = 1, MODE_K3 = 2;
+// the template's one instance; the value is part of the kernel's name,
+// attn_fwd_kernel<32, 2>, which chip_k4.py --sass compares across trees
+constexpr int MODE_K3 = 2;
 constexpr int AWARPS = 4;
 constexpr int AQT = 16 * AWARPS;      // query rows per block
 constexpr int AKB = 64;               // keys per streamed block
@@ -64,10 +56,10 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr int K3_MAX_LK = 1024;        // K3's keys (supported_seq); its key terms stay resident
 
 // shared memory: two stages of K and V tiles [64][D + 8], then K3's key
-// terms (a float2 per key of the row, written once; 128 bytes for K5)
+// terms (a float2 per key of the row, written once)
 template <int D, int MODE>
 constexpr int smem_bytes() {
-  return 2 * 2 * AKB * (D + 8) * 2 + (MODE == MODE_K3 ? K3_MAX_LK * 8 : 2 * AKB);
+  return 2 * 2 * AKB * (D + 8) * 2 + K3_MAX_LK * 8;
 }
 
 struct AttnParams {
@@ -77,7 +69,10 @@ struct AttnParams {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   const unsigned char* mask;   // K3: [B, Lk], nonzero = attend, or null
-  const int* length;           // K5: valid keys, on the device
+  // length and q_offset are unused: they keep the parameter block's layout,
+  // on which K3's compiled code (its SASS, compared by chip_k4.py --sass)
+  // depends
+  const int* length;
   int group, Lq, Lk, q_offset;
   float scale;
   // K3 only
@@ -111,7 +106,7 @@ __device__ __forceinline__ uint32_t keep_nibble(uint4 w, uint32_t thresh) {
 
 template <int D, int MODE>
 __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
-  constexpr bool CAUSAL = MODE == MODE_K5, TRAIN = MODE == MODE_K3;
+  static_assert(MODE == MODE_K3, "K3's forward is the one instance");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);                  // [2][64][D + 8]
   bf16* Vs = Ks + 2 * AKB * (D + 8);                         // [2][64][D + 8]
@@ -128,22 +123,14 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
   const int r0 = tile * AQT + warp * 16 + g, r1 = r0 + 8;
   const bool v0 = r0 < p.Lq, v1 = r1 < p.Lq, active = tile * AQT + warp * 16 < p.Lq;
 
-  int kend = p.Lk, len = p.Lk;
-  if (CAUSAL) {
-    len = *p.length;
-    const int last = min(tile * AQT + AQT, p.Lq);          // exclusive query row bound
-    kend = min(p.q_offset + last, p.Lk);
-    if (len >= 1) kend = min(kend, len);
-  }
-  const int qp0 = p.q_offset + r0, qp1 = p.q_offset + r1;
-  const int nblk = (kend + AKB - 1) / AKB;
-  // K3: the folded row, the scale in base 2, the row this lane draws for
+  const int nblk = (p.Lk + AKB - 1) / AKB;
+  // the folded row, the scale in base 2, the row this lane draws for
   const uint32_t frow = (uint32_t)b * gridDim.y + h;
-  const float scale = TRAIN ? p.scale * LOG2E : p.scale;
+  const float scale = p.scale * LOG2E;
   const int drow = (t & 1) ? r1 : r0;
   const int nw = (p.Lk + 31) / 32;
 
-  // key flag (K3: 0 attend, 1 masked, 2 past Lk) of key gj
+  // key flag (0 attend, 1 masked, 2 past Lk) of key gj
   auto flag = [&](int gj) -> unsigned char {
     if (gj >= p.Lk) return 2;
     return (p.mask && !p.mask[(long long)b * p.Lk + gj]) ? 1 : 0;
@@ -156,13 +143,12 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
     cp_async_commit();
   };
   stage(0, 0);
-  // K3: every key's term once (one load latency per block, not one per key block)
-  if (TRAIN)
-    for (int j = threadIdx.x; j < nblk * AKB; j += blockDim.x) {
-      const unsigned char f = flag(j);
-      kterm[j] = f == 0 ? make_float2(scale, 0.f)
-                        : make_float2(0.f, f == 1 ? A_NEG : -INFINITY);
-    }
+  // every key's term once (one load latency per block, not one per key block)
+  for (int j = threadIdx.x; j < nblk * AKB; j += blockDim.x) {
+    const unsigned char f = flag(j);
+    kterm[j] = f == 0 ? make_float2(scale, 0.f)
+                      : make_float2(0.f, f == 1 ? A_NEG : -INFINITY);
+  }
 
   uint32_t qa[D / 16][4];
   load_q<D>(qa, qb, p.q_sl, r0, r1, v0, v1, t);
@@ -187,7 +173,7 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
       // + 3 of the block), one nibble per j; the quad partner (lane ^ 1)
       // holds the other row of the same groups
       uint32_t kr0 = 0u, kr1 = 0u;
-      if (TRAIN && p.dropout) {
+      if (p.dropout) {
         const uint32_t u = t >> 1;
         uint32_t own = 0u;
 #pragma unroll
@@ -223,27 +209,17 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
       float mb0 = -INFINITY, mb1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        // K3: the terms of this lane's two keys in one 16-byte load
-        float4 kt2 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (TRAIN) kt2 = *reinterpret_cast<const float4*>(kterm + k0 + 8 * j + 2 * t);
+        // the terms of this lane's two keys in one 16-byte load
+        const float4 kt2 = *reinterpret_cast<const float4*>(kterm + k0 + 8 * j + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int cl = 8 * j + 2 * t + (e & 1);
-          float x;
-          if (CAUSAL) {
-            const int c = k0 + cl, qp = e < 2 ? qp0 : qp1;
-            x = c >= p.Lk ? -INFINITY : ((c > qp || c >= len) ? A_NEG : s[j][e] * scale);
-          } else {
-            x = (e & 1) ? fmaf(s[j][e], kt2.z, kt2.w) : fmaf(s[j][e], kt2.x, kt2.y);
-          }
-          s[j][e] = x;
-        }
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = (e & 1) ? fmaf(s[j][e], kt2.z, kt2.w) : fmaf(s[j][e], kt2.x, kt2.y);
         mb0 = fmaxf(mb0, fmaxf(s[j][0], s[j][1]));
         mb1 = fmaxf(mb1, fmaxf(s[j][2], s[j][3]));
       }
       const float mn0 = fmaxf(m0, qmax(mb0)), mn1 = fmaxf(m1, qmax(mb1));
-      const float c0 = TRAIN ? ex2(m0 - mn0) : expf(m0 - mn0);
-      const float c1 = TRAIN ? ex2(m1 - mn1) : expf(m1 - mn1);
+      const float c0 = ex2(m0 - mn0);
+      const float c1 = ex2(m1 - mn1);
       l0 *= c0;
       l1 *= c1;
 #pragma unroll
@@ -254,10 +230,9 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = TRAIN ? ex2(s[j][e] - (e < 2 ? mn0 : mn1))
-                          : expf(s[j][e] - (e < 2 ? mn0 : mn1));
+          float x = ex2(s[j][e] - (e < 2 ? mn0 : mn1));
           if (e < 2) l0 += x; else l1 += x;
-          if (TRAIN && p.dropout && !((e < 2 ? kr0 : kr1) & (1u << (4 * j + (e & 1)))))
+          if (p.dropout && !((e < 2 ? kr0 : kr1) & (1u << (4 * j + (e & 1)))))
             x = 0.f;
           s[j][e] = x;
         }
@@ -271,7 +246,7 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
   if (!active) return;
   l0 = qsum(l0);
   l1 = qsum(l1);
-  const float keep = TRAIN ? p.inv_keep : 1.f;
+  const float keep = p.inv_keep;
   const float s0 = keep / fmaxf(l0, 1e-30f), s1 = keep / fmaxf(l1, 1e-30f);
   bf16* ob = p.out + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -281,7 +256,7 @@ __global__ void __launch_bounds__(AWARPS * 32) attn_fwd_kernel(AttnParams p) {
     if (v1) *reinterpret_cast<uint32_t*>(ob + r1 * p.o_sl + nt * 8 + 2 * t) =
         pk(o[nt][2] * s1, o[nt][3] * s1);
   }
-  if (TRAIN && t == 0) {
+  if (t == 0) {
     // natural log; a row whose keys are all masked keeps lse = -1e30 (as
     // -1e30 + log(l) rounds in f32), which the backward reads back as such
     float* lrow = p.lse + (long long)frow * p.Lq;
@@ -304,9 +279,8 @@ int launch_d(const AttnParams& p, dim3 grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the two instances: K5 at the LLM head dim 128, K3 at the grounding
-// encoder's head dim 32
-constexpr int K5_D = 128, K3_D = 32;
+// K3's head dim: the grounding encoder's
+constexpr int K3_D = 32;
 
 // ---------------------------------------------------------------------------
 // K3's forward in float32 (the JAX kernel at f32, where its bf16 rounding
@@ -410,24 +384,6 @@ __global__ void __launch_bounds__(F3_QT) train_fwd_f32_kernel(Train32Params p) {
 }  // namespace
 
 extern "C" {
-
-// K5: causal GQA prefill attention, q [H, Lq, D] (strides q_sh, q_sl),
-// k/v [Hkv, S, D], out [H, Lq, D], D = 128; query head h reads KV head
-// h / (H / Hkv).
-int vgqa_flash_gqa_causal(const void* q, const void* k, const void* v, void* out,
-                          const int* length, int H, int Hkv, int Lq, int S, int D, int q_offset,
-                          long long q_sh, long long q_sl, long long k_sh, long long k_sl,
-                          long long v_sh, long long v_sl, long long o_sh, long long o_sl,
-                          float scale, void* stream) {
-  if (D != K5_D || H < 1 || Hkv < 1 || H % Hkv || Lq < 1 || S < 1 || q_offset < 0 ||
-      H > 65535 || (Lq + AQT - 1) / AQT > 65535)
-    return (int)cudaErrorInvalidValue;
-  AttnParams p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-               0, q_sh, q_sl, 0, k_sh, k_sl, 0, v_sh, v_sl, 0, o_sh, o_sl,
-               nullptr, length, H / Hkv, Lq, S, q_offset, scale};
-  return launch_d<K5_D, MODE_K5>(p, dim3(1, H, (Lq + AQT - 1) / AQT),
-                                 reinterpret_cast<cudaStream_t>(stream));
-}
 
 // K3 forward: q [W, Lq, H*32], k/v [W, Lk, H*32], out like q (contiguous);
 // lse [W*H, Lq] f32; bits [W*H, Lq, ceil(Lk/32)] uint32 when dropout, else

@@ -35,6 +35,9 @@ _SIGNATURES = {
     "vgqa_window_attention": [_P, _P, _P, _P, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L,
                               _P, _P, _I, _P, _I, _F, _P],
+    "vgqa_window_attention_sm90": [_P, _P, _P, _P, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _P, _I, _F, _P],
     "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
     "vgqa_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                        _P, _L, _P, _P, _I, _L, _P],

@@ -23,31 +23,34 @@ H = 32, Hkv = 8 per 32-frame request.
 On the H100 K4 at the ViT shape is 2*2*1025^2*64 FLOP per (tile, head),
 34.4 GFLOP per 8-tile call (0.035 ms of dense bf16) with 134.5 M
 exponentials (~0.032 ms on the SFUs) against 17 MB of q/k/v/out, and K5 is
-causal prefill attention at ~150 GFLOP per chunk against ~40 MB: both are
-bound by the arithmetic, provided the logits and probabilities stay out of
-device memory (a plain version writes and re-reads [Lq, Lk] f32 per head:
-1.2 GB per K5 call).
+causal prefill attention at up to ~144 GFLOP per chunk (22.4 ms of dense
+bf16 per 32-frame prefill; 43.4 G exponentials, 10.4 ms) against ~40 MB:
+both are bound by the arithmetic, provided the logits and probabilities
+stay out of device memory (a plain version writes and re-reads [Lq, Lk]
+f32 per head: 1.2 GB per K5 call).
 
-K4 runs its own Hopper kernel (``csrc/flash_mha_sm90.cu``): a block of three
-consumer warpgroups (64 query rows each, 192 per block) and a producer
-warpgroup (its registers handed to the consumers) whose first warp loads
-the Q tile once and streams K/V tiles of 128 keys by TMA into a 3-stage
-``mbarrier`` ring (128-byte swizzle; 3-D tensor maps over the strided
-views, so the qkv slices are read in place and rows past L are
-zero-filled); S = Q K^T and O += P V are ``wgmma`` (P from registers, V as
-an MN-major operand), each warpgroup keeps S of the next tile and P V of
-the last in flight together, the three take turns to issue them, the
-softmax is online in base 2 (one ``ex2.approx`` per logit), and a
-maskless and a masked variant (a per-key term in shared memory) are
-compiled apart. K5 (``csrc/flash_attention.cu``,
-the template it shares with K3's forward) keeps one block of 4 warps per
-(row, head, 64 queries), keys and values streaming through shared memory
-in blocks of 64 by ``cp.async``, S and P V on ``mma.sync`` m16n8k16 (f32
-accumulation), online softmax in f32. Operands are strided views, so the
-[L, H, dh] -> [H, L, dh] view of K5 costs no copy, and K5's GQA mapping
-reads the shared KV head in place. K5 reads ``length`` from device memory
-(no host sync per prefill) and never reads key blocks past the causal
-frontier of its query tile or past ``length``.
+Both run Hopper kernels on one pipeline (the device helpers of
+``csrc/sm90_common.cuh``): a producer warp streams K/V tiles of 128 keys by
+TMA into a 3-stage ``mbarrier`` ring (128-byte swizzle; 3-D tensor maps
+over the strided views, so the qkv slices, the transposed q of the LLM and
+the caches are read in place, and rows past the end are zero-filled);
+consumer warpgroups of 64 query rows issue S = Q K^T and O += P V as
+``wgmma`` (P from registers, V as an MN-major operand), keep S of the next
+tile and P V of the last in flight together, take turns to issue them, and
+run the softmax online in base 2 (one ``ex2.approx`` per logit).
+
+K4 (``csrc/flash_mha_sm90.cu``): three consumer warpgroups (192 query rows
+of one (row, head) per block), a maskless and a masked variant (a per-key
+term in shared memory) compiled apart.
+
+K5 (``csrc/flash_gqa_sm90.cu``): two consumer warpgroups (D = 128 leaves
+room for no third) own 2 x 64 / G query positions of all G = H / Hkv query
+heads of one KV head, so each K/V tile feeds 128 rows of one causal
+frontier; tiles wholly below the block's first position and below
+``length`` take no compare, only the diagonal and ``length`` tiles mask,
+tiles past both are never loaded, and the heaviest query tiles start
+first. ``length`` is read from device memory (no host sync per prefill).
+G must be a power of two up to 64 (InternLM2.5: 4).
 
 A K4 row whose keys are all masked averages V over its Lk keys (every logit
 is -1e30). The Pallas kernel also counts the zero rows it pads keys with up
@@ -56,7 +59,8 @@ block size; the port's does not. The InternViT never masks.
 
 Both wrappers launch the kernel for CUDA tensors (bf16; head dim 64 for K4,
 128 for K5, the dims of the QA path) and run the plain version for CPU
-tensors; anything else raises.
+tensors; anything else raises. ``python3 chip_k4.py --kernel k5 --other
+DIR`` times K5 (``--kernel k4``: K4) against another checkout on one card.
 ``flash_mha.launches`` / ``flash_gqa_causal.launches`` count the launches.
 """
 
@@ -220,6 +224,10 @@ def flash_gqa_causal(
         return flash_gqa_causal_reference(q, k, v, q_offset, length, scale)
     if dh != K5_HEAD_DIM:
         raise ValueError(f"flash_gqa_causal kernel takes head dim {K5_HEAD_DIM}, not {dh}")
+    group = H // Hkv
+    if group > 64 or group & (group - 1):
+        raise ValueError(f"flash_gqa_causal kernel takes a group of 1, 2, 4, .., 64 query "
+                         f"heads per KV head, not {group}")
     if v.shape != k.shape or k.shape[-1] != dh:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 0 <= int(q_offset):

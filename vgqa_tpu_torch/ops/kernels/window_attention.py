@@ -11,17 +11,31 @@ encoder calls it six times per forward with W = V*T = 128 rows, N = S =
 2*hw + L tokens (124 at 224 px, 418 at 420 px), C = 256, 8 heads of 32 and
 ``key_valid`` only; ``bias`` and ``region`` serve the Swin block and tests.
 
-On the H100 (``csrc/kernels.cu:window_attn_kernel``): the work is
-O(W*H*N^2*32) multiply-adds against O(W*N*C) bytes of q/k/v, so the
-bound is the arithmetic, as long as the [N, N] logits stay out of device
-memory (a plain version writes and re-reads them, plus the probabilities,
-per head). The kernel keeps one window-head's K and V^T in shared memory
-as bf16, one block per (window, head, 64-query tile), and computes S = QK^T
-and PV on the tensor cores (``mma.sync`` m16n8k16, f32 accumulation) with
-an online softmax over blocks of 64 keys held in registers, so neither
-the logits nor the probabilities reach memory. P is rounded to bf16 as
-the P.V operand (the TPU kernel does the same); the row max and sum stay
-f32. ``wgmma``/TMA is later work.
+On the H100 the work is O(W*H*N^2*32) multiply-adds against O(W*N*C)
+bytes of q/k/v, as long as the [N, N] logits stay out of device memory (a
+plain version writes and re-reads them, plus the probabilities, per head).
+At the encoder's 420 px call (W 128, N 418) the exponentials bound it:
+178.9 M ex2 take 0.0428 ms on the SFUs, above the bytes (0.0328 ms) and
+the products (0.023 ms). bf16 takes one of two kernels:
+
+* the encoder form (a key mask or no mask; no bias, no region ids):
+  ``window_attn_sm90_kernel`` in ``csrc/window_attn_sm90.cu``, on K4's
+  Hopper pipeline. A block owns one (window row, head): one thread starts
+  TMA loads of all of its Q, K and V (64-row boxes, 64-byte swizzle, rows
+  past N zero-filled) at once, and two warpgroups take its 64-row query
+  tiles in turn; S = QK^T and P.V are ``wgmma`` (P from registers, V as an
+  MN-major operand), the last key tile at the smallest width that covers
+  it (n40 at N = 418), the softmax online in base 2 with the key term
+  folded into one FFMA per logit.
+* with ``bias`` or ``region`` (K1's attention phase, tests):
+  ``window_attn_kernel`` in ``csrc/kernels.cu``, one block per (window,
+  head, 64-query tile), that window-head's K and V^T in shared memory as
+  bf16, S = QK^T and P.V on ``mma.sync`` m16n8k16 with an online softmax
+  over blocks of 64 keys. Moving it onto the Hopper kernel with bias and
+  region terms is K1's own redesign.
+
+P is rounded to bf16 as the P.V operand (the TPU kernel does the same);
+the row max and sum stay f32.
 
 In float32 (``window_attn_f32_kernel``) nothing is rounded and every
 product is an FFMA (single-pass TF32 would not be float32): one thread per
@@ -31,6 +45,8 @@ H100 SXM against 989 for bf16 on the tensor cores).
 
 ``window_attention`` launches the kernel for CUDA tensors and runs
 ``window_attention_reference`` for CPU tensors; anything else raises.
+``python3 chip_k4.py --kernel k2 --other DIR`` times the encoder form
+against another checkout (and SDPA) on one card.
 """
 
 from __future__ import annotations
@@ -93,7 +109,9 @@ def window_attention_reference(
 
 def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
            region=None, key_valid=None) -> None:
-    """Launch ``window_attn_kernel`` on the current stream (no counting).
+    """Launch K2 on the current stream (no counting): float32 takes
+    ``window_attn_f32_kernel``; bf16 takes ``window_attn_sm90_kernel``
+    without ``bias`` and ``region``, else ``window_attn_kernel``.
 
     q/k/v/out are ``[W, N, >=C]`` views whose last dim is contiguous; heads
     sit at channel offsets h*32 of each token row."""
@@ -108,7 +126,7 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
         if t.stride(-1) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
             raise ValueError("window_attention kernel needs 16-byte aligned, "
                              "channel-contiguous rows")
-    if not 1 <= N <= MAX_TOKENS:      # the bf16 kernel's shared memory; the f32 one streams
+    if not 1 <= N <= MAX_TOKENS:      # the bf16 kernels' shared memory; the f32 one streams
         raise ValueError(f"window_attention kernel takes 1..{MAX_TOKENS} tokens, not {N}")
     if bias is not None:
         bias = bias.to(q.dtype).contiguous()
@@ -126,16 +144,19 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
         if key_valid.shape[1] != N or W % n_kvalid:
             raise ValueError(f"key_valid shape {tuple(key_valid.shape)} does not fit {W}x{N}")
     lib = build.load_library()
-    entry = lib.vgqa_window_attention_f32 if f32 else lib.vgqa_window_attention
-    err = entry(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        W, N, num_heads,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        build.ptr(bias), build.ptr(region), n_region,
-        build.ptr(key_valid), n_kvalid, float(scale),
-        build.stream_handle(q.device),
-    )
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+               v.stride(0), v.stride(1), out.stride(0), out.stride(1))
+    if not f32 and bias is None and region is None:
+        err = lib.vgqa_window_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
+            *strides, build.ptr(key_valid), n_kvalid, float(scale),
+            build.stream_handle(q.device))
+    else:
+        entry = lib.vgqa_window_attention_f32 if f32 else lib.vgqa_window_attention
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
+            *strides, build.ptr(bias), build.ptr(region), n_region,
+            build.ptr(key_valid), n_kvalid, float(scale), build.stream_handle(q.device))
     build.check(err, "window_attention")
 
 
