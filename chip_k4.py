@@ -2,7 +2,7 @@
 checkout (for example the parent commit unpacked by ``git archive``), in
 turns.
 
-    python3 chip_k4.py [--kernel k4|k2|k5] [--other DIR] [--sass]
+    python3 chip_k4.py [--kernel k4|k2|k5|k1|k1f32] [--other DIR] [--sass]
 
 Each timing run is its own process, in the order other, this, this, other,
 so that both trees see the card alike. A run imports ``vgqa_tpu_torch`` and
@@ -22,6 +22,13 @@ launch counter.
   32, Hkv 8, dh 128, Lq 1024, S 9216, length 8700; q the [L, H, dh] ->
   [H, L, dh] view), and their sum x 32 layers per prefill; SDPA with
   ``enable_gqa`` and the bool (causal, length) mask.
+* ``k1``: K1 ``swin_block_canvas`` in bf16 at the 12 block calls of a V = 2
+  serving forward at 224 px (chip_smoke's K1_SERVE_CASES), device ms per
+  phase (GEMM, attention, LayerNorm; each tree's kernel names) and CUDA
+  events, summed per forward; no yardstick (no PyTorch call computes a Swin
+  block).
+* ``k1f32``: the same in float32 at the 12 block calls of a 64f@420 train
+  step (K1_420_CASES, B = 1, DropPath gates), summed per step.
 
 ``--sass`` (with ``--other``) compiles both trees' ``csrc/flash_attention.cu``
 and ``csrc/flash_mha_sm90.cu`` and compares K3's forward
@@ -53,6 +60,14 @@ K5_H, K5_HKV, K5_LQ, K5_S, K5_D, K5_LEN = 32, 8, 1024, 9216, 128, 8700
 NAMES = {"k4": ("flash_mha_sm90_kernel", "attn_fwd_kernel<64"),
          "k2": ("window_attn_sm90_kernel", "window_attn_kernel"),
          "k5": ("flash_gqa_sm90_kernel", "attn_fwd_kernel<128")}
+# K1's phases, by the kernel names of this tree and of trees from before its
+# Hopper redesign (WMMA GEMM, mma.sync attention, FFMA float32 GEMM)
+K1_PHASES = {False: {"gemm": ("gemm_sm90_kernel", "gemm_bf16_kernel"),
+                     "attn": ("window_attn_sm90_kernel", "window_attn_kernel"),
+                     "ln": ("ln_rows_kernel",)},
+             True: {"gemm": ("gemm_sm90_kernel", "gemm_f32_kernel"),
+                    "attn": ("window_attn_f32_kernel",),
+                    "ln": ("ln_rows_kernel",)}}
 
 
 def _smoke():
@@ -168,9 +183,100 @@ def child_k5(cs) -> dict:
     return out
 
 
+def child_k1(cs, f32: bool) -> dict:
+    """K1 at the block calls of a serving forward (bf16) or of a 64f@420
+    step (float32): per call error, events ms, device ms per phase."""
+    import torch
+
+    from vgqa_tpu_torch.ops.kernels.swin_block import (
+        swin_block_canvas, swin_block_canvas_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    cases = cs.K1_420_CASES if f32 else [c for c in cs.K1_SERVE_CASES if c[-1]]
+    batch = 1 if f32 else 2
+    out = {}
+    for i, (dims, C, heads, shift, per) in enumerate(cases):
+        window, shift, padded, N, ws, canvas, bias, region, valid = cs._swin_case(
+            dev, g, dims, C, heads, shift, batch, dtype=dtype)
+        gates = (torch.tensor([[0.0, 1.25]] if i % 2 else [[1.1111, 0.0]], device=dev)
+                 if f32 else None)
+        args = (canvas, *ws, bias, heads, window, shift)
+        kw = {"region": region, "valid": valid, "gates": gates}
+        ref = swin_block_canvas_reference(canvas.float(), *[w.float() for w in ws],
+                                          bias.float(), heads, window, shift, **kw)
+        rel = cs.rel_err(swin_block_canvas(*args, **kw), ref)[0]
+        del ref
+        if not rel < (cs.F32_TOL if f32 else cs.REL_TOL):
+            raise AssertionError(f"swin_block_canvas {dims} C={C}: rel_err {rel}")
+        ph = cs.device_phases(lambda: swin_block_canvas(*args, **kw), K1_PHASES[f32],
+                              calls=5, counter=lambda: swin_block_canvas.launches)
+        out[f"K1 {'f32 ' if f32 else ''}B={batch} {dims} C={C} roll={shift} x{per}"] = {
+            "rel_err": rel, "per": per, "events_ms": cs.cuda_ms(
+                lambda: swin_block_canvas(*args, **kw), reps=10),
+            **{f"{p}_device_ms": v for p, v in ph.items()}}
+        del canvas, ws, bias
+        torch.cuda.empty_cache()
+    from vgqa_tpu_torch.ops.kernels import swin_block as sb
+
+    if hasattr(sb, "gemm_plan"):      # this tree's GEMM alone, per layer and stage
+        out["gemm_layers"] = gemm_layers(cs, sb, cases, batch, dtype)
+    return out
+
+
+def gemm_layers(cs, sb, cases, batch, dtype) -> list:
+    """csrc/gemm_sm90.cu alone at each distinct (stage, layer) of the cases:
+    its plan, device ms per call, and the bytes / operations bound of the
+    layer (A read, W read, output written; residual modes also read it)."""
+    import torch
+
+    from vgqa_tpu_torch.ops.kernels import build
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    lib, st = build.load_library(), build.stream_handle(dev)
+    f32 = dtype == torch.float32
+    elem = 4 if f32 else 2
+    peak = (cs.PEAK_TF32 / 3) if f32 else cs.PEAK_BF16
+    rows, seen = [], set()
+    for dims, C, heads, shift, per in cases:
+        M = batch * dims[0] * (-(-dims[1] // 7) * 7) * (-(-dims[2] // 7) * 7)
+        if (M, C) in seen:
+            continue
+        seen.add((M, C))
+        for layer, (N, K, mode) in {"qkv": (3 * C, C, 0), "proj": (C, C, 2),
+                                   "fc1": (4 * C, C, 1), "fc2": (C, 4 * C, 3)}.items():
+            a = torch.randn(M, K, generator=g, device=dev).to(dtype)
+            w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(dtype)
+            bias = torch.zeros(N, device=dev, dtype=dtype)
+            o = torch.empty(M, N, device=dev, dtype=dtype)
+            res = torch.randn(M, N, generator=g, device=dev).to(dtype) if mode >= 2 else None
+            ops = sb._weight_operands(w, dev, dtype)
+
+            def run():
+                sb._gemm(lib, st, a, ops, bias, o, N, mode, res=res, ldr=N if res is not None
+                         else 0)
+
+            ms = cs.device_kernels(run, calls=10, names=("gemm_sm90_kernel",))[2]
+            nbytes = (M * K + K * N + M * N * (2 if mode >= 2 else 1)) * elem
+            b_ms = 1e3 * max(2.0 * M * N * K / peak, nbytes / cs.PEAK_BYTES)
+            plan = sb.gemm_plan(M, N, K, f32)
+            rows.append({"C": C, "M": M, "layer": layer, "device_ms": ms, "bound_ms": b_ms,
+                         "plan": {k: plan[k] for k in ("bn", "stages", "kps", "resident",
+                                                       "grid")}})
+            del a, w, o, res, ops
+    return rows
+
+
 def child(tree: str, kernel: str) -> dict:
     sys.path.insert(0, tree)
     cs = _smoke()
+    if kernel in ("k1", "k1f32"):
+        out = child_k1(cs, kernel == "k1f32")
+        out["profiler_windows_retaken"] = cs.RETAKEN
+        return out
     out = {"k4": child_k4, "k2": child_k2, "k5": child_k5}[kernel](cs)
     out["profiler_windows_retaken"] = cs.RETAKEN
     return out
@@ -238,7 +344,7 @@ def sass_report(other: str) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("k4", "k2", "k5"), default="k4")
+    ap.add_argument("--kernel", choices=("k4", "k2", "k5", "k1", "k1f32"), default="k4")
     ap.add_argument("--other", help="another checkout to measure in turns with this one")
     ap.add_argument("--sass", action="store_true",
                     help="compare K3-forward and K4 SASS with --other")
@@ -268,6 +374,26 @@ def main() -> int:
                           if ln.startswith("RESULT ")][-1][7:])
         for line in res.pop("profiler_windows_retaken"):
             print(f"{label} profiler window short: {line}", flush=True)
+        if a.kernel in ("k1", "k1f32"):
+            for r in res.pop("gemm_layers", []):
+                print(f"{label} GEMM alone C={r['C']} M={r['M']} {r['layer']}: device "
+                      f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plan {r['plan']}"
+                      f"  [{card}]", flush=True)
+            tot = {k: 0.0 for k in ("all", "gemm", "attn", "ln", "events")}
+            for kind, r in res.items():
+                print(f"{label} {kind}: rel_err {r['rel_err']:.3e}, device {r['all_device_ms']:.4f}"
+                      f" ms = gemm {r['gemm_device_ms']:.4f} + attn {r['attn_device_ms']:.4f} + "
+                      f"ln {r['ln_device_ms']:.4f}; events {r['events_ms']:.4f} ms  [{card}]",
+                      flush=True)
+                for k in ("all", "gemm", "attn", "ln"):
+                    tot[k] += r["per"] * r[f"{k}_device_ms"]
+                tot["events"] += r["per"] * r["events_ms"]
+            unit = ("per 64f@420 f32 step (12 calls)" if a.kernel == "k1f32"
+                    else "per V=2 forward at 224 px (12 calls)")
+            print(f"{label} K1 {unit}: device {tot['all']:.3f} ms = gemm {tot['gemm']:.3f} + "
+                  f"attn {tot['attn']:.3f} + ln {tot['ln']:.3f}; events {tot['events']:.3f} ms"
+                  f"  [{card}]", flush=True)
+            continue
         sums = [0.0, 0.0]
         for kind, r in res.items():
             rel = "" if r["rel_err"] is None else f"rel_err {r['rel_err']:.3e}, "

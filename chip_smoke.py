@@ -16,7 +16,11 @@
    key_valid: window_attn_sm90_kernel, one per call), also by device time
    (profiler) beside SDPA's and the exponential floor; K1 swin_block_canvas
    at the 12 serving block shapes (V = 2) and, with DropPath gates that
-   include zeros, at the 8 training stage shapes (B = 1); K1'
+   include zeros, at the 8 training stage shapes (B = 1), each also by
+   device time per phase (the wgmma GEMM of csrc/gemm_sm90.cu, the
+   attention, the LayerNorms; fails unless the GEMM and the attention ran)
+   beside the chain's byte floor, summed per forward with the recorded
+   time of the chain it replaced (the old-vs-new line); K1'
    swin_block_fused on the windows of the rolled canvas at the 9 serving
    shapes, also held against K1 on the same canvas (the same chain with
    identity row maps); K3 flash_mha_train forward (out, lse) and backward
@@ -29,8 +33,11 @@
    plain versions (fails above 1e-4 of max |ref|): K1 at the 8 block shapes
    of a 64f@420 step (B = 1, gates), K1' on the same windows (and against K1),
    K2 at S = 418, K3 forward and backward at [512, 418, 32], rates 0 and 0.1
-   (keep bits equal to the bf16 kernel's); CUDA-event and device times, and
-   bounds at the FFMA rate (67 TFLOP/s).
+   (keep bits equal to the bf16 kernel's); CUDA-event and device times (K1
+   per phase: its 3xTF32 GEMM, FFMA attention, LayerNorms), and bounds at
+   the FFMA rate (67 TFLOP/s), for K1 also the 3xTF32 GEMM's three tf32
+   products at the dense TF32 rate (494.7 TFLOP/s) plus its attention at
+   the FFMA rate.
 4. Serves the full-width default grounding model (ResNet-101, Video Swin-T,
    RoBERTa-base, 6-layer encoder, 6+6 decoders) with random weights from
    seed 0 in bf16: one warm-up request, then three pipelined 128-frame
@@ -262,6 +269,29 @@ def k1_bound(batch, padded, C, N, heads):
     return bound(flops, nbytes)
 
 
+def k1_chain_floor(batch, padded, C, N, heads):
+    """Least ms of the bf16 seven-launch chain's own bytes (not the block's
+    bound): per token 26 C-wide rows through device memory (LN1 2, qkv 4,
+    attention 4, proj 3, LN2 2, fc1 5, fc2 6), the weights and the bias."""
+    tokens = batch * padded[0] * padded[1] * padded[2]
+    return 1e3 * 2 * (26 * tokens * C + 12 * C * C + heads * N * N) / PEAK_BYTES
+
+
+# K1's device kernels by phase: the GEMM (csrc/gemm_sm90.cu), the attention
+# (bf16: K2's Hopper kernel in its terms form; float32: window_attn_f32_kernel)
+# and the two LayerNorms
+K1_PHASES = {"gemm": ("gemm_sm90_kernel",), "attn": ("window_attn_sm90_kernel",),
+             "ln": ("ln_rows_kernel",)}
+F32_K1_PHASES = {"gemm": ("gemm_sm90_kernel",), "attn": ("window_attn_f32_kernel",),
+                 "ln": ("ln_rows_kernel",)}
+# the chain before the wgmma GEMM and the terms form of the attention
+# (commit 30930db: WMMA GEMM, mma.sync attention), per V = 2 forward at 224 px
+# by CUDA events, and per 64f@420 f32 step, on NVIDIA H100 80GB HBM3, 700.00 W
+# (PERF.md); chip_k4.py --kernel k1 / k1f32 --other measures both trees in turns
+K1_RECORDED_MS = {"forward_224": 22.96, "f32_step_420": 111.5}
+PEAK_TF32 = 494.7e12  # H100 SXM dense TF32 FLOP/s
+
+
 def check_swin_block(dev, g, cases, batch, gated):
     from vgqa_tpu_torch.ops.kernels.swin_block import (
         swin_block_canvas, swin_block_canvas_reference)
@@ -282,17 +312,25 @@ def check_swin_block(dev, g, cases, batch, gated):
         rel, mae = rel_err(out, ref)
         del out, ref
         ms = cuda_ms(lambda: swin_block_canvas(*args, **kw))
+        ph = device_phases(lambda: swin_block_canvas(*args, **kw), K1_PHASES,
+                           counter=lambda: swin_block_canvas.launches)
         plain = cuda_ms(lambda: swin_block_canvas_reference(*f32, **kw))
         b_ms, b_by = k1_bound(batch, padded, C, N, heads)
+        floor = k1_chain_floor(batch, padded, C, N, heads)
         rows.append({"dims": dims, "C": C, "shift": shift, "per_fwd": per_fwd,
                      "rel_err": rel, "max_abs_err": mae, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by, "chain_floor_ms": floor,
+                     "device_ms": ph["all"], "gemm_device_ms": ph["gemm"],
+                     "attn_device_ms": ph["attn"], "ln_device_ms": ph["ln"]})
         print(f"K1 swin_block_canvas B={batch} {dims}->{padded} C={C} h={heads} roll={shift} "
               f"valid={valid is not None} gates={gates is not None}: rel_err {rel:.3e} "
-              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms  plain(f32) {plain:.3f} ms  "
-              f"bound {b_ms:.3f} ms ({b_by})")
+              f"max_abs_err {mae:.3e}  kernel {ms:.3f} ms (events), device {ph['all']:.3f} ms "
+              f"= gemm {ph['gemm']:.3f} + attn {ph['attn']:.3f} + ln {ph['ln']:.3f}  plain(f32) "
+              f"{plain:.3f} ms  bound {b_ms:.3f} ms ({b_by}), chain byte floor {floor:.3f} ms")
         if not rel < REL_TOL:
             raise AssertionError(f"swin_block_canvas {dims} C={C}: rel_err {rel} >= {REL_TOL}")
+        if not (ph["gemm"] > 0 and ph["attn"] > 0):
+            raise AssertionError(f"swin_block_canvas {dims}: device phases {ph}")
     return rows
 
 
@@ -362,6 +400,30 @@ def device_kernels(fn, calls=10, names=K3_NAMES, counter=None):
     window after an empty one has held more kernels than its calls
     launch), else the fullest. A kernel launched more
     than once per call still shows as such."""
+    events = _profiled_events(fn, calls, names, counter)
+    k3 = [e for e in events if any(k in e.name for k in names)]
+
+    def ms(es):
+        return sum(e.time_range.end - e.time_range.start for e in es) / calls / 1e3
+
+    return len(events) / calls, len(k3) / calls, ms(k3), ms(events)
+
+
+def device_phases(fn, phases, calls=3, counter=None):
+    """Device ms per call of each phase of ``fn`` ({phase: name substrings}),
+    and of all its kernels (key "all"), from one profiler window (taken
+    again when short, as in :func:`device_kernels`)."""
+    names = tuple(k for ks in phases.values() for k in ks)
+    events = _profiled_events(fn, calls, names, counter)
+    out = {p: sum(e.time_range.end - e.time_range.start for e in events
+                  if any(k in e.name for k in ks)) / calls / 1e3 for p, ks in phases.items()}
+    out["all"] = sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3
+    return out
+
+
+def _profiled_events(fn, calls, names, counter):
+    """The device events of a whole profiler window of ``calls`` calls (see
+    :func:`device_kernels`)."""
     from torch.profiler import ProfilerActivity, profile
 
     events = []
@@ -392,12 +454,7 @@ def device_kernels(fn, calls=10, names=K3_NAMES, counter=None):
             break
         if len(got) > len(events):
             events = got
-    k3 = [e for e in events if any(k in e.name for k in names)]
-
-    def ms(es):
-        return sum(e.time_range.end - e.time_range.start for e in es) / calls / 1e3
-
-    return len(events) / calls, len(k3) / calls, ms(k3), ms(events)
+    return events
 
 
 def check_flash_train(dev, g):
@@ -1277,7 +1334,7 @@ K1_420_CASES = [
     ((64, 27, 27), 384, 12, (0, 0, 0), 3), ((64, 27, 27), 384, 12, (4, 3, 3), 3),
     ((64, 14, 14), 768, 24, (0, 0, 0), 1), ((64, 14, 14), 768, 24, (4, 3, 3), 1),
 ]
-F32_K1_NAMES = ("ln_rows_kernel<float>", "gemm_f32_kernel", "window_attn_f32_kernel")
+F32_K1_NAMES = ("ln_rows_kernel<float", "gemm_sm90_kernel<true", "window_attn_f32_kernel")
 F32_K3_NAMES = ("train_fwd_f32_kernel", "flash_bwd_f32_kernel")
 
 
@@ -1322,24 +1379,34 @@ def check_f32_kernels(dev, g):
         vs_k1 = rel_err(window_reverse(fout, window, 1, *padded), k1_plain)[1]
         del out, ref, fout, fref, k1_plain
         ms = cuda_ms(lambda: swin_block_canvas(*args, **kw))
-        dev_ms = device_kernels(lambda: swin_block_canvas(*args, **kw), calls=3,
-                                names=F32_K1_NAMES)[2]
+        ph = device_phases(lambda: swin_block_canvas(*args, **kw), F32_K1_PHASES,
+                           counter=lambda: swin_block_canvas.launches)
+        dev_ms = ph["all"]
         fms = cuda_ms(lambda: swin_block_fused(windows, *ws, bias, heads, **fkw))
         plain = cuda_ms(lambda: swin_block_canvas_reference(*args, **kw), reps=2)
         tokens = padded[0] * padded[1] * padded[2]
         b_ms, b_by = bound(tokens * (24.0 * C * C + 4.0 * N * C),
                            2 * tokens * C * 4 + 12 * C * C * 4 + heads * N * N * 4, PEAK_F32)
+        # the bound of this design: the GEMM's three tf32 products at the
+        # dense TF32 rate, the attention at the FFMA rate
+        tf32_ms = 1e3 * (3 * tokens * 24.0 * C * C / PEAK_TF32 + tokens * 4.0 * N * C / PEAK_F32)
         k1_rows.append({"dims": dims, "C": C, "shift": shift, "per_step": per_step,
                         "rel_err": rel, "max_abs_err": mae, "fused_rel_err": frel,
                         "fused_max_abs_err": fmae, "fused_vs_k1_max_abs": vs_k1, "ms": ms,
-                        "device_ms": dev_ms, "fused_ms": fms, "plain_ms": plain,
-                        "bound_ms": b_ms, "bound_by": b_by})
+                        "device_ms": dev_ms, "gemm_device_ms": ph["gemm"],
+                        "attn_device_ms": ph["attn"], "ln_device_ms": ph["ln"],
+                        "fused_ms": fms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by, "tf32_bound_ms": tf32_ms})
         print(f"K1 f32 swin_block_canvas B=1 {dims}->{padded} C={C} h={heads} roll={shift}: "
               f"rel_err {rel:.3e}  K1' rel_err {frel:.3e} (vs K1 max abs {vs_k1:.3e})  kernel "
-              f"{ms:.3f} ms (device {dev_ms:.3f})  K1' {fms:.3f} ms  plain(f32) {plain:.3f} ms  "
-              f"bound {b_ms:.3f} ms ({b_by}, FFMA)")
+              f"{ms:.3f} ms (device {dev_ms:.3f} = gemm {ph['gemm']:.3f} + attn "
+              f"{ph['attn']:.3f} + ln {ph['ln']:.3f})  K1' {fms:.3f} ms  plain(f32) {plain:.3f} "
+              f"ms  bound {b_ms:.3f} ms ({b_by}, FFMA); 3xTF32 GEMM + FFMA attention "
+              f"{tf32_ms:.3f} ms")
         if not (rel < F32_TOL and frel < F32_TOL and vs_k1 < F32_TOL):
             raise AssertionError(f"f32 K1/K1' {dims} C={C}: rel_err {rel}, {frel}, vs K1 {vs_k1}")
+        if not (ph["gemm"] > 0 and ph["attn"] > 0):
+            raise AssertionError(f"f32 swin_block_canvas {dims}: device phases {ph}")
         del windows, canvas, ws
     torch.cuda.empty_cache()
 
@@ -1496,7 +1563,7 @@ def train_f32(dev, card):
     for name, us in top[:12]:
         print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
     ran = all(any(k in n for n in names) for k in F32_K1_NAMES[1:] + F32_K3_NAMES)
-    bf16_ran = [n for n in names if "gemm_bf16_kernel" in n or "attn_fwd_kernel<32" in n
+    bf16_ran = [n for n in names if "gemm_sm90_kernel<false" in n or "attn_fwd_kernel<32" in n
                 or "flash_bwd_kernel" in n or K2_NAMES[0] in n]
     if not ran or bf16_ran:
         raise AssertionError(f"f32 step: f32 kernels ran {ran}, bf16 kernels {bf16_ran}")
@@ -1780,10 +1847,32 @@ def main() -> int:
         "step_device_ms": sum(r["device_ms"] * r["per_step"] for r in f32_k1),
         "step_plain_ms": sum(r["plain_ms"] * r["per_step"] for r in f32_k1),
         "step_bound_ms": sum(r["bound_ms"] * r["per_step"] for r in f32_k1),
+        "step_tf32_bound_ms": sum(r["tf32_bound_ms"] * r["per_step"] for r in f32_k1),
+        "step_gemm_device_ms": sum(r["gemm_device_ms"] * r["per_step"] for r in f32_k1),
+        "step_attn_device_ms": sum(r["attn_device_ms"] * r["per_step"] for r in f32_k1),
+        "step_ln_device_ms": sum(r["ln_device_ms"] * r["per_step"] for r in f32_k1),
         "in_step_device_ms": tr32["k1_device_ms"]}
+    k1_phase = {p: sum(r[f"{p}_device_ms"] * r["per_fwd"] for r in k1_rows)
+                for p in ("gemm", "attn", "ln")}
+    k1_device = sum(r["device_ms"] * r["per_fwd"] for r in k1_rows)
+    k1_floor = sum(r["chain_floor_ms"] * r["per_fwd"] for r in k1_rows)
+    print(f"K1 per V=2 forward at 224 px: device {k1_device:.3f} ms = gemm "
+          f"{k1_phase['gemm']:.3f} + attn {k1_phase['attn']:.3f} + ln {k1_phase['ln']:.3f}; "
+          f"events {k1_fwd:.3f} ms; bound {k1_bound:.3f} ms ({k1_by}), chain byte floor "
+          f"{k1_floor:.3f} ms  [{card}]")
+    print(f"K1 old vs new: per V=2 forward at 224 px {K1_RECORDED_MS['forward_224']:.2f} ms "
+          f"(recorded, the WMMA chain, events) -> {k1_fwd:.3f} ms (events, this run); f32 per "
+          f"64f@420 step {K1_RECORDED_MS['f32_step_420']:.1f} ms (recorded) -> "
+          f"{f32_k1_row['step_ms']:.3f} ms (events; device {f32_k1_row['step_device_ms']:.3f} "
+          f"= gemm {f32_k1_row['step_gemm_device_ms']:.3f} + attn "
+          f"{f32_k1_row['step_attn_device_ms']:.3f} + ln {f32_k1_row['step_ln_device_ms']:.3f}; "
+          f"FFMA bound {f32_k1_row['step_bound_ms']:.3f}, 3xTF32 bound "
+          f"{f32_k1_row['step_tf32_bound_ms']:.3f})  [{card}]")
     table = {"kernels": [
         {"name": "swin_block_canvas", "route": "cuda",
-         "source": "vgqa_tpu_torch/csrc/kernels.cu",
+         "source": "vgqa_tpu_torch/csrc/gemm_sm90.cu (GEMM), "
+                   "vgqa_tpu_torch/csrc/window_attn_sm90.cu (bf16 attention), "
+                   "vgqa_tpu_torch/csrc/kernels.cu (LayerNorm, f32 attention)",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
          "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"]
          + tr420["launches"]["swin_block_canvas"] + tr32["launches"]["swin_block_canvas"],
@@ -1793,13 +1882,16 @@ def main() -> int:
                               "train_f32": tr32["launches"]["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None,
+         "library_ms": None, "device_ms": k1_device, "gemm_device_ms": k1_phase["gemm"],
+         "attn_device_ms": k1_phase["attn"], "ln_device_ms": k1_phase["ln"],
+         "chain_floor_ms": k1_floor,
          "train_step_ms": sum(r["ms"] * r["per_fwd"] for r in k1_train_rows),
          "train_step_plain_ms": sum(r["plain_ms"] * r["per_fwd"] for r in k1_train_rows),
          "train_step_bound_ms": sum(r["bound_ms"] * r["per_fwd"] for r in k1_train_rows),
          "f32": f32_k1_row},
         {"name": "swin_block_fused", "route": "cuda",
-         "source": "vgqa_tpu_torch/csrc/kernels.cu",
+         "source": "vgqa_tpu_torch/csrc/gemm_sm90.cu, vgqa_tpu_torch/csrc/window_attn_sm90.cu, "
+                   "vgqa_tpu_torch/csrc/kernels.cu (K1's chain with identity row maps)",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:212",
          "launches": tower["blocks"]["launches"]["swin_block_fused"],
          "launches_by_path": {"serve": 0, "train": 0, "qa": 0,
@@ -1816,9 +1908,9 @@ def main() -> int:
                  "vs_k1_max_abs": max(r["fused_vs_k1_max_abs"] for r in f32_k1),
                  "ms_420_shapes": sum(r["fused_ms"] * r["per_step"] for r in f32_k1)}},
         {"name": "window_attention", "route": "cuda",
-         "source": "vgqa_tpu_torch/csrc/window_attn_sm90.cu (key-mask and maskless form: "
-                   "the encoder's calls); vgqa_tpu_torch/csrc/kernels.cu (with bias or "
-                   "region ids; float32)",
+         "source": "vgqa_tpu_torch/csrc/window_attn_sm90.cu (bf16: the encoder's key-mask "
+                   "form and K1's bias / region form); vgqa_tpu_torch/csrc/kernels.cu "
+                   "(float32)",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
          "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"],
          "launches_by_path": {"serve": serve_launches["window_attention"],

@@ -516,3 +516,188 @@ def test_flash_gqa_sm90_ragged_cuda(cuda, H, Hkv, Lq, S, q_offset, length):
         ref = flash_gqa_causal_reference(qv.float(), k.float(), v.float(), q_offset, n)
         torch.cuda.synchronize()
         assert _rel_err(out, ref) < CUDA_REL
+
+
+# ---- K1's Hopper kernels: the wgmma + TMA GEMM (bf16 and 3xTF32) and K2's
+# terms form (rel-pos bias, region ids) ----------------------------------------
+from vgqa_tpu_torch.ops.kernels import build, swin_block as sb  # noqa: E402
+
+# the GEMM against a torch product with its rounding points: bf16 differs
+# from it by a bf16 rounding flipped by the summation order (one ulp, 2^-8
+# relative); 3xTF32 differs from the float64 product by about 2^-21 per
+# term plus the tensor cores' f32 accumulation over K / 8 x 3 products,
+# which grows with K (1.8e-5 of max |ref| at K = 3,072 on an H100). A
+# single tf32 product is held to be at least 10x further off.
+GEMM_BF16_REL = 8e-3
+GEMM_F32_REL = 5e-5
+
+
+def _gemm_reference(a, w_nk, bias, mode, res=None, rowmap=None, gates=None, gate_col=0,
+                    rows_per_sample=1, out=None):
+    """The epilogue modes of csrc/gemm_sm90.cu with the kernel's rounding
+    points, on an f32 product (float64 for float32 operands)."""
+    f32 = a.dtype == torch.float32
+    dt = a.dtype
+
+    def rnd(x):
+        return x if f32 else x.to(dt).float()
+
+    acc = (a.double() @ w_nk.double().t()).float() if f32 else a.float() @ w_nk.float().t()
+    b = bias.float()
+    if mode == sb._EPI_BIAS:
+        return (rnd(acc) + b).to(dt)
+    if mode == sb._EPI_GELU:
+        return torch.nn.functional.gelu(acc + b, approximate="none").to(dt)
+    t = rnd(rnd(acc) + b)
+    M = a.shape[0]
+    if gates is not None:
+        g = rnd(gates[torch.arange(M, device=a.device) // rows_per_sample, gate_col])
+        t = rnd(t * g[:, None])
+    idx = torch.arange(M, device=a.device) if rowmap is None else rowmap.long()
+    if mode == sb._EPI_RES_GATHER:
+        return (res[idx].float() + t).to(dt)
+    out = out.clone()
+    out[idx] = (res.float() + t).to(dt)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode,maps,gated", [
+    (0, False, False), (1, False, False),
+    (2, False, False), (2, True, False), (2, True, True),
+    (3, False, False), (3, True, False), (3, True, True),
+])
+@pytest.mark.parametrize("C,layer", [(96, "qkv"), (96, "fc2"), (192, "fc2"), (768, "fc2"),
+                                     (32, "fc1")])
+def test_gemm_sm90_cuda(cuda, C, layer, mode, maps, gated, dtype):
+    """csrc/gemm_sm90.cu alone in each epilogue mode, with and without row
+    maps and DropPath gates, bf16 and 3xTF32, at K1's layer shapes (resident
+    and streamed W, a clipped last M tile), against a torch product with the
+    same rounding points."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    N, K = {"qkv": (3 * C, C), "proj": (C, C), "fc1": (4 * C, C), "fc2": (C, 4 * C)}[layer]
+    if mode >= 2:          # the residual modes write C-wide rows (proj, fc2)
+        N = C
+    M = 3 * 128 + 77
+    g = torch.Generator(device=cuda).manual_seed(C + mode)
+    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=cuda) * K ** -0.5).to(dtype)
+    bias = (0.1 * torch.randn(N, generator=g, device=cuda)).to(dtype)
+    res = torch.randn(M, N, generator=g, device=cuda).to(dtype) if mode >= 2 else None
+    rowmap = torch.randperm(M, generator=g, device=cuda).int() if maps else None
+    gates = torch.tensor([[1.1111, 0.0], [0.0, 1.25]], device=cuda) if gated else None
+    out = torch.full((M, N), 7.0, device=cuda, dtype=dtype)
+    kw = dict(res=res, rowmap=rowmap, gates=gates, gate_col=1 if mode == 3 else 0,
+              rows_per_sample=-(-M // 2))
+    before = out.clone()
+    lib = build.load_library()
+    ops = sb._weight_operands(w, cuda, dtype)
+    sb._gemm(lib, build.stream_handle(cuda), a, ops, bias, out, N, mode,
+             ldr=N if mode >= 2 else 0, **kw)
+    ref = _gemm_reference(a, w.t().contiguous(), bias, mode, out=before, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = _rel_err(out, ref)
+    assert err < (GEMM_F32_REL if dtype == torch.float32 else GEMM_BF16_REL)
+    if dtype == torch.float32 and mode == 0:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one = torch.matmul(a, w) + bias
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert err * 10 < _rel_err(one, ref)
+
+
+@pytest.mark.cuda
+def test_weight_operands_follow_in_place_updates(cuda):
+    """The cached weight operands are keyed on the weight's storage and
+    version: an in-place update is read, never the stale copy."""
+    w = torch.randn(96, 288, device=cuda)
+    hi, lo = sb._weight_operands(w, cuda, torch.float32)
+    assert torch.equal(hi + lo, w.t())
+    assert sb._weight_operands(w, cuda, torch.float32)[0] is hi
+    w.mul_(2.0)
+    hi2, lo2 = sb._weight_operands(w, cuda, torch.float32)
+    assert torch.equal(hi2 + lo2, w.t())
+
+
+K2_TERMS_N = [392, 98, 130, 49]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", ["bias", "region", "both"])
+@pytest.mark.parametrize("N", K2_TERMS_N)
+def test_window_attention_sm90_terms_cuda(cuda, N, terms):
+    """K2's terms form (window_attn_sm90_kernel with the rel-pos bias and/or
+    the SW-MSA region ids: K1's attention phase) at N = 392 (K1's windows),
+    98, 130 and an odd 49 (the bias read one element at a time), 16 windows
+    x 3 heads, region ids of 4 rows repeated, against the plain version; one
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    W, H = 16, 3
+    qkv = torch.randn(W, N, 3 * H * 32, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.split(H * 32, dim=-1)
+    bias = (0.5 * torch.randn(H, N, N, generator=g, device=cuda)).bfloat16()
+    region = torch.randint(0, 4, (4, N), generator=g, device=cuda)
+    kw = {"bias": bias if terms != "region" else None,
+          "region": region if terms != "bias" else None}
+    before = window_attention.launches
+    out = window_attention(q, k, v, num_heads=H, scale=32 ** -0.5, **kw)
+    ref = window_attention_reference(
+        q.float(), k.float(), v.float(), num_heads=H, scale=32 ** -0.5,
+        **{n: (None if t is None else t.float() if n == "bias" else t) for n, t in kw.items()})
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    assert _rel_err(out, ref) < CUDA_REL
+
+
+# the 9 K1 serving block shapes (64 frames, V = 2 at 224 px, and the padded
+# 420 px stage 1)
+K1_SERVE_SHAPES = [
+    ((64, 56, 56, 96), 3, (0, 0, 0)), ((64, 56, 56, 96), 3, (4, 3, 3)),
+    ((64, 28, 28, 192), 6, (0, 0, 0)), ((64, 28, 28, 192), 6, (4, 3, 3)),
+    ((64, 14, 14, 384), 12, (0, 0, 0)), ((64, 14, 14, 384), 12, (4, 3, 3)),
+    ((64, 7, 7, 768), 24, (0, 0, 0)), ((64, 7, 7, 768), 24, (4, 3, 3)),
+    ((64, 53, 53, 192), 6, (4, 3, 3)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,heads,shift", K1_SERVE_SHAPES)
+def test_swin_block_serving_shapes_cuda(cuda, shape, heads, shift, dtype):
+    """K1 at every serving shape (V = 2; gates with a dropped branch) against
+    its plain version (bf16 within 3e-2, float32 within 1e-4 of max |ref|),
+    and K1' on the windows of the rolled canvas equal to K1 (max abs diff
+    0: the same chain with identity row maps)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D, H, W, C = shape
+    window, shift = tvs._adjust_window((D, H, W), (8, 7, 7), shift)
+    dims_p = tuple(d + (-d) % w for d, w in zip((D, H, W), window))
+    N = window[0] * window[1] * window[2]
+    rng = np.random.RandomState(C + sum(shift))
+    ws = [torch.from_numpy(w).to(cuda).to(dtype) for w in _block_weights(rng, C)]
+    g = torch.Generator(device=cuda).manual_seed(C + sum(shift))
+    canvas = torch.randn(2, *dims_p, C, generator=g, device=cuda).to(dtype)
+    bias = (0.2 * torch.randn(heads, N, N, generator=g, device=cuda)).to(dtype)
+    region = (torch.from_numpy(tvs._region_partition(dims_p, window, shift)).to(cuda)
+              if any(shift) else None)
+    valid = tvs._valid_partition((D, H, W), dims_p, window, shift)
+    valid = None if valid is None else torch.from_numpy(valid).to(cuda)
+    gates = torch.tensor([[1.1111, 1.25], [0.0, 1.0]], device=cuda)
+    out = swin_block_canvas(canvas, *ws, bias, heads, window, shift,
+                            region=region, valid=valid, gates=gates)
+    ref = swin_block_canvas_reference(canvas.float(), *[w.float() for w in ws], bias.float(),
+                                      heads, window, shift, region=region, valid=valid,
+                                      gates=gates)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) < (F32_REL if dtype == torch.float32 else CUDA_REL)
+    del ref
+    k1 = swin_block_canvas(canvas, *ws, bias, heads, window, shift, region=region,
+                           valid=valid)
+    rolled = torch.roll(canvas, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
+    fused = swin_block_fused(tvs.window_partition(rolled, window), *ws, bias, heads,
+                             region=region, valid=valid)
+    torch.cuda.synchronize()
+    assert (tvs.window_reverse(fused, window, 2, *dims_p).float() - k1.float()).abs().max() == 0

@@ -1,23 +1,25 @@
-// K2 window_attention for Hopper (sm_90a), encoder form, behind a plain C
-// interface: the port of vgqa_tpu/ops/pallas/window_attention.py:
-// window_attention (Pallas _body) when it is given a key mask or no mask
-// (no rel-pos bias, no region ids). Per row w of q/k/v [W, N, H*32] and
-// head h:
+// K2 window_attention for Hopper (sm_90a), behind a plain C interface: the
+// port of vgqa_tpu/ops/pallas/window_attention.py:window_attention (Pallas
+// _body). Per row w of q/k/v [W, N, H*32] and head h:
 //
-//     out[w, :, h] = softmax(scale q_h k_h^T + keyterm[w mod n_kvalid]) v_h
+//     out[w, :, h] = softmax(scale q_h k_h^T + keyterm[w mod n_kvalid]
+//                            + bias[h] + regionterm[w mod n_region]) v_h
 //
 // keyterm 0 for a valid key, -1e30 for a masked one (so a row whose keys are
-// all masked averages V over its N keys), -inf past N. P is rounded to bf16 as
-// the P V operand (as the Pallas kernel does); the output is bf16.
+// all masked averages V over its N keys), -inf past N; bias the rel-pos bias
+// [H, N, N] (bf16); regionterm -1e30 where the key's SW-MSA region id
+// differs from the query's. P is rounded to bf16 as the P V operand (as the
+// Pallas kernel does); the output is bf16.
 //
-// Its caller is the cross-modal encoder's self-attention
-// (models/layers.py), 6 calls per V = 2 serving forward at W = 128 rows,
-// N = 124 (224 px) or 418 (420 px) tokens, 8 heads of 32, q/k/v the [W, N,
-// 256] outputs of three projections and key_valid [W, N]. With bias or
-// region ids (K1's attention phase, tests) window_attention keeps
-// window_attn_kernel in kernels.cu.
+// Its callers: the cross-modal encoder's self-attention (models/layers.py),
+// 6 calls per V = 2 serving forward at W = 128 rows, N = 124 (224 px) or 418
+// (420 px) tokens, 8 heads of 32, q/k/v the [W, N, 256] outputs of three
+// projections and key_valid [W, N] (the key-term form); and K1's attention
+// phase (ops/kernels/swin_block.py), 12 calls per forward at windows of
+// N = 392 tokens, 3-24 heads, with the bias and, in the shifted blocks, the
+// region ids (the terms form, TERMS below).
 //
-// What bounds it on an H100 at N = 418: the exponentials. 178.9 M ex2 per
+// What bounds the key-term form on an H100 at N = 418: the exponentials. 178.9 M ex2 per
 // call take 0.0428 ms on the SFUs (16 per SM per clock), above the bytes
 // (110 MB, 0.0328 ms) and the products (22.9 GFLOP, 0.023 ms).
 //
@@ -52,6 +54,17 @@
 //   only when a row max of the warp moved. At key tile t a warpgroup issues
 //   S_t and P_{t-1} V_{t-1} together and computes the softmax of tile t
 //   while the P V product runs (as K4 does).
+// - The terms form (bias or region ids given) is its own instantiation
+//   (TERMS): the region id of every key sits in shared memory beside the
+//   key terms, each thread keeps its two rows' ids, and the bias of the
+//   thread's (row, key pair) elements of a key tile is loaded from device
+//   memory (L2: 0.9-7.4 MB per stage) into registers in the accumulator's
+//   layout before the tile's S product is issued, so the loads fly while
+//   the tensor cores run. Each logit then takes a second FFMA (bias *
+//   log2(e)) and a compare-and-select (region). Two blocks per SM, as
+//   for the key-term form: ptxas fits the terms form in 128 registers with
+//   no spill, and four warpgroups per SM take 0.67x the attention time of
+//   two (K1's serving shapes, chip_k4.py --kernel k1).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -78,9 +91,10 @@ constexpr float K2_NEG = -1e30f;
 constexpr float K2_LOG2E = 1.4426950408889634f;
 
 // shared memory from a 1024-byte aligned base: Q [nt][64][32], K and V
-// likewise, the key terms [nt * 64] and one mbarrier per 64-row index
-__host__ __device__ constexpr int k2_smem_bytes(int nt) {
-  return 3 * nt * K2_TILE + nt * K2_T * 4 + 8 * nt + 1024;     // + alignment slack
+// likewise, the key terms [nt * 64], the keys' region ids [nt * 64] (terms
+// form only) and one mbarrier per 64-row index
+__host__ __device__ constexpr int k2_smem_bytes(int nt, bool terms) {
+  return 3 * nt * K2_TILE + nt * K2_T * 4 * (terms ? 2 : 1) + 8 * nt + 1024;   // + alignment slack
 }
 
 struct K2Params {
@@ -89,10 +103,14 @@ struct K2Params {
   const float* key_valid;      // [n_kvalid, N], > 0 = attendable key, or null
   int n_kvalid, N, nt;
   float scale2;                // scale * log2(e)
+  const bf16* bias;            // [H, N, N] or null (terms form)
+  const int* region;           // [n_region, N] or null (terms form)
+  int n_region;
 };
 
-// NBT: 8-key blocks of the last key tile (1 .. 8)
-template <int NBT>
+// NBT: 8-key blocks of the last key tile (1 .. 8); TERMS: the form with a
+// bias or region ids
+template <int NBT, bool TERMS>
 __global__ void __launch_bounds__(K2_THREADS, 2)
 window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -104,7 +122,8 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nt = p.nt, N = p.N;
   const uint32_t q_s = base, k_s = base + nt * K2_TILE, v_s = base + 2 * nt * K2_TILE;
   float* terms = reinterpret_cast<float*>(sbase + 3 * nt * K2_TILE);
-  const uint32_t bar = base + 3 * nt * K2_TILE + nt * K2_T * 4;    // [nt]
+  int* kreg = reinterpret_cast<int*>(terms + nt * K2_T);            // [nt * 64] (TERMS)
+  const uint32_t bar = base + 3 * nt * K2_TILE + nt * K2_T * 4 * (TERMS ? 2 : 1);   // [nt]
   const int w = blockIdx.x, h = blockIdx.y;
 
   if (threadIdx.x == 0) {
@@ -120,6 +139,11 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const float* kv = p.key_valid ? p.key_valid + (long long)(w % p.n_kvalid) * N : nullptr;
   for (int j = threadIdx.x; j < nt * K2_T; j += K2_THREADS)
     terms[j] = j >= N ? -INFINITY : (kv && !(kv[j] > 0.f)) ? K2_NEG : 0.f;
+  if (TERMS) {
+    const int* rg = p.region ? p.region + (long long)(w % p.n_region) * N : nullptr;
+    for (int j = threadIdx.x; j < nt * K2_T; j += K2_THREADS)
+      kreg[j] = (rg && j < N) ? rg[j] : 0;
+  }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -132,6 +156,40 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t pp[4][4];                            // P of the tile whose P V is next
   float m0, m1, l0, l1;
   uint64_t qdesc;
+  // terms form: this thread's two query rows (their region ids, their bias
+  // rows of head h) and the bias of a key tile in the accumulator layout:
+  // bb[r][j] holds keys 8 j + 2 q4, + 1 of row r as a bf16 pair
+  int row0 = 0, row1 = 0, rq0 = 0, rq1 = 0;
+  uint32_t bb[2][8];
+  const bf16* bias_h = TERMS && p.bias ? p.bias + (long long)h * N * N : nullptr;
+  const bool bias_pairs = (N % 2) == 0;         // 4-byte aligned key pairs
+  auto load_bias = [&](auto nb_tag, int t) {
+    constexpr int NB = decltype(nb_tag)::value;
+    if constexpr (TERMS) {
+      if (!bias_h) return;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row1 : row0;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int key = t * K2_T + 8 * j + 2 * q4;
+          const bf16* src = bias_h + (long long)row * N + key;
+          uint32_t v = 0u;
+          if (row < N && key < N) {
+            if (bias_pairs) {
+              v = __ldg(reinterpret_cast<const unsigned int*>(src));
+            } else {
+              const uint32_t lo = __ldg(reinterpret_cast<const unsigned short*>(src));
+              const uint32_t hi = key + 1 < N
+                  ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(src + 1)) : 0u;
+              v = lo | (hi << 16);
+            }
+          }
+          bb[r][j] = v;
+        }
+      }
+    }
+  };
 
   // the registers a tile of NB key blocks uses: S's accumulators (a narrow
   // last tile has its own, st: on the full tiles' registers, or with the
@@ -182,6 +240,23 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       S[4 * j + 1] = fmaf(S[4 * j + 1], scale2, k2.y);
       S[4 * j + 2] = fmaf(S[4 * j + 2], scale2, k2.x);
       S[4 * j + 3] = fmaf(S[4 * j + 3], scale2, k2.y);
+      if constexpr (TERMS) {
+        if (p.region) {                         // another region: + -1e30
+          const int2 kr = *reinterpret_cast<const int2*>(kreg + t * K2_T + 2 * q4 + 8 * j);
+          S[4 * j] += kr.x != rq0 ? K2_NEG : 0.f;
+          S[4 * j + 1] += kr.y != rq0 ? K2_NEG : 0.f;
+          S[4 * j + 2] += kr.x != rq1 ? K2_NEG : 0.f;
+          S[4 * j + 3] += kr.y != rq1 ? K2_NEG : 0.f;
+        }
+        if (bias_h) {                           // + bias * log2(e)
+          const float2 b0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb[0][j]));
+          const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb[1][j]));
+          S[4 * j] = fmaf(b0.x, K2_LOG2E, S[4 * j]);
+          S[4 * j + 1] = fmaf(b0.y, K2_LOG2E, S[4 * j + 1]);
+          S[4 * j + 2] = fmaf(b1.x, K2_LOG2E, S[4 * j + 2]);
+          S[4 * j + 3] = fmaf(b1.y, K2_LOG2E, S[4 * j + 3]);
+        }
+      }
     }
     float a0[2] = {-INFINITY, -INFINITY}, a1[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -236,6 +311,7 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // one step t >= 1: S_t and P_{t-1} V_{t-1} (a full tile) in flight
   // together, the softmax of S_t overlapping the P V product
   auto step = [&](auto nb_tag, int t) {
+    load_bias(nb_tag, t);
     mbar_wait(bar + 8 * t, 0);
     issue_s(nb_tag, t);
     issue_pv(full_tile, t - 1);
@@ -250,6 +326,7 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     pack(nb_tag);
   };
   auto first = [&](auto nb_tag) {
+    load_bias(nb_tag, 0);
     mbar_wait(bar, 0);
     issue_s(nb_tag, 0);
     wgmma_wait0();
@@ -271,6 +348,12 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 16; ++i) o[i] = 0.f;
     m0 = m1 = -INFINITY;
     l0 = l1 = 0.f;
+    if constexpr (TERMS) {
+      row0 = qt * K2_T + (warp % 4) * 16 + g;
+      row1 = row0 + 8;
+      rq0 = row0 < N ? kreg[row0] : 0;
+      rq1 = row1 < N ? kreg[row1] : 0;
+    }
     if (nt == 1) {
       first(last_tile);
       last_pv(last_tile, 0);
@@ -297,41 +380,51 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int NBT>
-int launch_nbt(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-               const K2Params& p, dim3 grid, cudaStream_t st) {
+template <int NBT, bool TERMS>
+int launch_form(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                const K2Params& p, dim3 grid, cudaStream_t st) {
   static bool configured = false;     // set once: the dynamic shared memory limit, and
   if (!configured) {                  // all of L1 as shared memory (two blocks per SM)
-    cudaError_t e = cudaFuncSetAttribute(window_attn_sm90_kernel<NBT>,
+    cudaError_t e = cudaFuncSetAttribute(window_attn_sm90_kernel<NBT, TERMS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         k2_smem_bytes(K2_MAX_TILES));
+                                         k2_smem_bytes(K2_MAX_TILES, TERMS));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(window_attn_sm90_kernel<NBT>,
+      e = cudaFuncSetAttribute(window_attn_sm90_kernel<NBT, TERMS>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  window_attn_sm90_kernel<NBT><<<grid, K2_THREADS, k2_smem_bytes(p.nt), st>>>(tq, tk, tv, p);
+  window_attn_sm90_kernel<NBT, TERMS>
+      <<<grid, K2_THREADS, k2_smem_bytes(p.nt, TERMS), st>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
+}
+
+template <int NBT>
+int launch_nbt(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+               const K2Params& p, dim3 grid, cudaStream_t st) {
+  return (p.bias || p.region) ? launch_form<NBT, true>(tq, tk, tv, p, grid, st)
+                              : launch_form<NBT, false>(tq, tk, tv, p, grid, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2, encoder form: q/k/v [W, N, H*32] bf16 (strides in elements, multiples
-// of 8, channel-contiguous rows, 16-byte aligned bases), out likewise,
-// key_valid [n_kvalid, N] float or null (row w reads row w % n_kvalid).
+// K2: q/k/v [W, N, H*32] bf16 (strides in elements, multiples of 8,
+// channel-contiguous rows, 16-byte aligned bases), out likewise, key_valid
+// [n_kvalid, N] float or null (row w reads row w % n_kvalid), bias [H, N, N]
+// bf16 or null, region [n_region, N] int32 or null (row w reads w % n_region).
 int vgqa_window_attention_sm90(const void* q, const void* k, const void* v, void* out,
                                int W, int N, int H,
                                long long q_win, long long q_row, long long k_win,
                                long long k_row, long long v_win, long long v_row,
                                long long o_win, long long o_row,
-                               const float* key_valid, int n_kvalid, float scale,
-                               void* stream) {
+                               const float* key_valid, int n_kvalid, const void* bias,
+                               const int* region, int n_region, float scale, void* stream) {
   const int nt = (N + K2_T - 1) / K2_T;
   if (W < 1 || H < 1 || N < 1 || nt > K2_MAX_TILES || H > 65535 || n_kvalid < 1 ||
+      n_region < 1 || ((uintptr_t)bias % 4) ||
       (q_row | k_row | v_row) % 8 || (W > 1 && (q_win | k_win | v_win) % 8) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
@@ -341,7 +434,8 @@ int vgqa_window_attention_sm90(const void* q, const void* k, const void* v, void
       !make_map_3d(&tk, k, {C, N, W}, k_row, k_win, {K2_D, K2_T, 1}, CU_TENSOR_MAP_SWIZZLE_64B) ||
       !make_map_3d(&tv, v, {C, N, W}, v_row, v_win, {K2_D, K2_T, 1}, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
-  const K2Params p{(bf16*)out, o_win, o_row, key_valid, n_kvalid, N, nt, scale * K2_LOG2E};
+  const K2Params p{(bf16*)out, o_win, o_row, key_valid, n_kvalid, N, nt, scale * K2_LOG2E,
+                   (const bf16*)bias, region, n_region};
   const dim3 grid(W, H);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch ((N - (nt - 1) * K2_T + 7) / 8) {      // 8-key blocks of the last key tile

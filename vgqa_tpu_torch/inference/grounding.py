@@ -74,13 +74,20 @@ def load_model(cfg, ckpt_path: str = "", device=None, seed: int = 0,
 
     Weights come from ``state_dict`` if given, else from the ``torch.save``d
     state dict at ``ckpt_path`` if it exists, else from a seeded random
-    initialization (``torch.Generator`` seeded with ``seed``). The model is
+    initialization (``torch.Generator`` seeded with ``seed``). A JAX
+    checkpoint (an orbax directory) raises ``ValueError``: export it first
+    with ``tools/export_torch_checkpoint.py grounding``. The model is
     cast to ``cfg.TPU.COMPUTE_DTYPE`` (the serving precision). ``device``
     defaults to the card; without one it raises (pass ``device="cpu"``)."""
     device = resolve_device(device)
     model = VSTGNet(GroundingConfig.from_cfg(cfg))
     init_weights(model, torch.Generator().manual_seed(seed))
     if state_dict is None and ckpt_path:
+        if os.path.isdir(ckpt_path):
+            raise ValueError(
+                f"{ckpt_path} is an orbax checkpoint of the JAX package; export it where JAX "
+                "is installed with `python tools/export_torch_checkpoint.py grounding "
+                f"{ckpt_path} OUT.pt` and pass OUT.pt")
         if os.path.exists(ckpt_path):
             state_dict = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         else:

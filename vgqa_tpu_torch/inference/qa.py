@@ -5,8 +5,10 @@ Counterpart of ``vgqa_tpu/inference/qa.py``: sample frames from the
 return ``{"answer": str}``. ``model_dir`` may hold the engine config
 (``vgqa_tpu_config.json``), a SentencePiece ``tokenizer.model`` and raw HF
 weights (``*.bin`` / ``*.pth``, converted on load); ``"__tiny__"`` builds a
-small random model. Converted orbax checkpoints (a ``params/`` directory)
-need the JAX package to read and raise here.
+small random model. A converted orbax checkpoint (a ``params/`` directory)
+loads from ``params_torch.pt`` beside it, which
+``tools/export_torch_checkpoint.py qa MODEL_DIR`` writes where JAX is
+installed (float, int8 or int4 trees); without that file it raises.
 
 Every entry point takes ``device``: the card by default, and without one it
 raises unless ``device="cpu"``.
@@ -28,6 +30,22 @@ from ..qa.vit import ViTConfig
 from ..utils.device import resolve_device
 
 DEFAULT_MODEL_DIR = "checkpoints/qa/InternVideo2_5_Chat_8B"
+EXPORTED_TREE = "params_torch.pt"      # tools/export_torch_checkpoint.py qa
+
+
+def load_exported_tree(path: str) -> Dict[str, Any]:
+    """The ``{llm, embed, vision}`` tree that ``tools/export_torch_checkpoint.py
+    qa`` wrote, with numpy leaves as ``QAEngine.load_tree`` takes them:
+    floats as float32 (bfloat16 widened exactly), quantized leaves as
+    stored."""
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return (node.float() if node.is_floating_point() else node).numpy()
+
+    return to_numpy(tree)
 
 
 def _load_tiles(video_path, bound, input_size, max_num, num_segments):
@@ -69,10 +87,13 @@ def _load_cached(model_dir: str, device: torch.device) -> QAEngine:
         vit_cfg = ViTConfig(**{k: v for k, v in raw.get("vit", {}).items() if k != "flash"})
     else:
         llm_cfg, vit_cfg = LLMConfig.internlm2_5_7b(), ViTConfig.internvit_300m()
-    if os.path.exists(os.path.join(model_dir, "params")):
+    exported = os.path.join(model_dir, EXPORTED_TREE)
+    if not os.path.exists(exported) and os.path.exists(os.path.join(model_dir, "params")):
         raise RuntimeError(
             f"{model_dir}/params is an orbax checkpoint, which only the JAX package "
-            "reads; point model_dir at the raw HF weights (*.bin / *.pth) instead")
+            "reads; export it where JAX is installed with `python "
+            f"tools/export_torch_checkpoint.py qa {model_dir}` (writes {EXPORTED_TREE}), "
+            "or point model_dir at the raw HF weights (*.bin / *.pth)")
     tokenizer = None
     sp_model = os.path.join(model_dir, "tokenizer.model")
     if os.path.exists(sp_model):
@@ -82,7 +103,9 @@ def _load_cached(model_dir: str, device: torch.device) -> QAEngine:
     engine = QAEngine.init_random(llm_cfg, vit_cfg, device=device, dtype=torch.bfloat16,
                                   tokenizer=tokenizer)
     files = [f for f in os.listdir(model_dir) if f.endswith((".bin", ".pth"))]
-    if files:
+    if os.path.exists(exported):
+        engine.load_tree(load_exported_tree(exported))
+    elif files:
         _load_hf_weights(engine, model_dir, files)
     return engine
 

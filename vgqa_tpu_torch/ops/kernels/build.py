@@ -32,15 +32,15 @@ _U = ctypes.c_uint
 
 # argtypes of every C entry point in csrc/*.cu
 _SIGNATURES = {
-    "vgqa_window_attention": [_P, _P, _P, _P, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _L, _L,
-                              _P, _P, _I, _P, _I, _F, _P],
+    "vgqa_window_attention_f32": [_P, _P, _P, _P, _I, _I, _I,
+                                  _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _P, _P, _I, _P, _I, _F, _P],
     "vgqa_window_attention_sm90": [_P, _P, _P, _P, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L,
-                                   _P, _I, _F, _P],
+                                   _P, _I, _P, _P, _I, _F, _P],
     "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
-    "vgqa_gemm_bf16": [_P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I,
-                       _P, _L, _P, _P, _I, _L, _P],
+    "vgqa_gemm_sm90": [_P, _L, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I,
+                       _P, _L, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P],
     "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F,
                              _P],
     "vgqa_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -53,9 +53,8 @@ _SIGNATURES = {
 }
 # the float32 forms take the arguments of their bf16 counterparts
 _SIGNATURES.update({f32: _SIGNATURES[bf16] for f32, bf16 in (
-    ("vgqa_window_attention_f32", "vgqa_window_attention"),
     ("vgqa_ln_rows_f32", "vgqa_ln_rows"),
-    ("vgqa_gemm_f32", "vgqa_gemm_bf16"),
+    ("vgqa_gemm_sm90_f32", "vgqa_gemm_sm90"),
     ("vgqa_flash_train_fwd_f32", "vgqa_flash_train_fwd"),
     ("vgqa_flash_train_bwd_f32", "vgqa_flash_train_bwd"))})
 

@@ -21,28 +21,37 @@ C = 96/192/384/768 with 3/6/12/24 heads of 32, windows of 8x7x7 = 392
 tokens, canvases of V = 2 clips x 64 frames. The windowed block serves
 ``models/video_swin.py:fused_block_apply``, one block per call.
 
-On the H100 the block is bound by its products (the four linear layers
-carry ~8x the multiply-adds of the attention) and by the bytes of its
-intermediates: a plain PyTorch version also moves the [N, N] logits and
-probabilities of every head through device memory, plus a copy for each
-roll and window (un)partition. The port is one short chain of hand-written
-launches (``csrc/kernels.cu``), all products on the tensor cores with f32
+On the H100 the block is bound by the bytes of its intermediates at
+Swin-T's stages 0-1 (C = 96, 192: every linear layer is under the card's
+~295 flop per byte; the seven launches move about 26 C-wide rows per token)
+and by its products at stages 2-3 (the four linear layers carry ~8x the
+multiply-adds of the attention). A plain PyTorch version also moves the
+[N, N] logits and probabilities of every head through device memory, plus a
+copy for each roll and window (un)partition. The port is one short chain of
+hand-written launches, all products on the tensor cores with f32
 accumulation, entered with row maps for the canvas and without them for
 windows:
 
-1. ``ln_rows_kernel`` reads each window token from its source row (for the
-   canvas a cached row map replaces roll + partition; windows are read in
-   place), applies LN1 and the ``valid`` mask, and writes the tokens in
-   window order;
-2. ``gemm_bf16_kernel`` computes qkv (scale folded into the q columns);
-3. ``window_attn_kernel`` runs the attention per (window, head) with an
-   online softmax in registers, so logits and probabilities never reach
+1. ``ln_rows_kernel`` (``csrc/kernels.cu``) reads each window token from
+   its source row (for the canvas a cached row map replaces roll +
+   partition; windows are read in place), applies LN1 and the ``valid``
+   mask, and writes the tokens in window order;
+2. ``gemm_sm90_kernel`` (``csrc/gemm_sm90.cu``: wgmma on TMA-fed 64-byte
+   swizzled k-steps, a producer warp and two consumer warpgroups, W
+   resident in shared memory where it fits, an N tile that divides N, the
+   epilogue staged through shared memory into 16-byte row stores) computes
+   qkv (scale folded into the q columns); its launch plan is
+   :func:`gemm_plan`;
+3. ``window_attn_sm90_kernel`` (``csrc/window_attn_sm90.cu``, K2's Hopper
+   kernel in its terms form: rel-pos bias and region ids) runs the
+   attention, one block per (window, head) with its Q, K and V loaded once,
+   an online softmax in registers, so logits and probabilities never reach
    device memory;
-4. ``gemm_bf16_kernel`` computes proj with bias, gate and the residual read
+4. ``gemm_sm90_kernel`` computes proj with bias, gate and the residual read
    from the source rows fused in its epilogue;
 5. ``ln_rows_kernel`` computes LN2;
-6. ``gemm_bf16_kernel`` computes fc1 with bias and exact ``erff`` GELU;
-7. ``gemm_bf16_kernel`` computes fc2 with bias, gate and residual, and
+6. ``gemm_sm90_kernel`` computes fc1 with bias and exact ``erff`` GELU;
+7. ``gemm_sm90_kernel`` computes fc2 with bias, gate and residual, and
    writes each token to its output row (for the canvas, its canvas row in
    the rolled frame).
 
@@ -57,10 +66,12 @@ instead, which is exact for any logits.
 
 In float32 (``TPU.TRAIN_DTYPE float32``, the default, and
 ``TPU.COMPUTE_DTYPE float32``) the chain runs the same seven launches
-through the kernels' float32 forms (``ln_rows_kernel<float>``,
-``gemm_f32_kernel``, ``window_attn_f32_kernel``): FFMA products, every
-rounding point an identity, as the JAX kernel at f32. That chain is bound
-by the FFMA rate (67 TFLOP/s on an H100 SXM).
+through the kernels' float32 forms, every rounding point an identity, as
+the JAX kernel at f32: ``ln_rows_kernel<float>``, the GEMM as 3xTF32
+(``gemm_sm90_kernel<true, ...>``: A_hi W_hi + A_hi W_lo + A_lo W_hi on
+tf32 wgmma with f32 accumulation, each operand split by :func:`tf32_split`;
+W's split is cached per weight, keyed on its storage and version) and
+``window_attn_f32_kernel`` (FFMA, bound by the 67 TFLOP/s FFMA rate).
 
 ``swin_block_canvas`` / ``swin_block_fused`` launch the chain for CUDA
 tensors (bf16 or f32, head dim 32) and run ``swin_block_canvas_reference``
@@ -69,7 +80,9 @@ tensors (bf16 or f32, head dim 32) and run ``swin_block_canvas_reference``
 
 from __future__ import annotations
 
+import collections
 import functools
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -81,6 +94,115 @@ from .dtypes import check_kernel_dtype
 
 LN_EPS = 1e-5
 _EPI_BIAS, _EPI_GELU, _EPI_RES_GATHER, _EPI_RES_SCATTER = 0, 1, 2, 3
+
+# csrc/gemm_sm90.cu's plan space: M tiles of 128 rows, k-steps of 64-byte
+# rows (32 bf16 or 16 float), the N tiles the kernel is compiled for (the
+# widest first) and the wgmma width of each, an H100 block's shared memory
+GEMM_BM = 128
+GEMM_ROW_BYTES = 64
+GEMM_BNS = (192, 144, 128, 96, 64, 32)
+GEMM_WN = {192: 96, 144: 48, 128: 64, 96: 96, 64: 64, 32: 32}
+GEMM_SMEM_MAX = 232_448
+GEMM_SMEM_MAX2 = 115_712       # each of two blocks on an SM: (233,472 - 2 x 1,024) / 2
+H100_SMS = 132
+# H100 SXM rates the plan weighs a layer's bytes against its products with
+GEMM_PEAK_BF16, GEMM_PEAK_TF32, GEMM_PEAK_BYTES = 989e12, 494.7e12, 3.35e12
+
+
+def gemm_smem_bytes(f32: bool, bn: int, stages: int, kps: int, resident: bool,
+                    ksteps: int) -> int:
+    """Shared memory of a plan, as ``gemm_smem_bytes`` in csrc/gemm_sm90.cu:
+    alignment slack, the A ring of ``stages`` slots of ``kps`` k-steps (and
+    its lo halves in float32), W (every k-step when resident, else those of
+    each slot; hi and lo in float32), the N tile's bias, the epilogue's
+    staging rows (32 per consumer warpgroup) and the mbarriers."""
+    dup = 2 if f32 else 1
+    return (1024 + stages * kps * GEMM_BM * GEMM_ROW_BYTES * dup
+            + (ksteps if resident else stages * kps) * bn * GEMM_ROW_BYTES * dup
+            + 4 * bn + 2 * 32 * (bn * (4 if f32 else 2) + 16) + 8 * (2 * stages + 1))
+
+
+def gemm_plan(M: int, N: int, K: int, f32: bool, num_sms: int = H100_SMS) -> dict:
+    """The launch plan of ``gemm_sm90_kernel`` for ``out[M, N] = A[M, K] @
+    W[N, K]^T``, which :func:`_gemm` passes to the kernel.
+
+    The N tile ``bn`` divides N (N % 32 == 0: K1's layers are multiples of
+    the head dim), so no product is computed past N; a k-step is one
+    64-byte row (32 bf16, 16 float), so K is never padded. A ring slot
+    holds ``kps`` k-steps (the most of 4, 3, 2, 1 that divides the k-steps
+    and leaves at least 3 slots), so one barrier wait and one commit cover
+    them while the producer loads two slots ahead. W stays ``resident`` (all
+    of its k-steps of the N tile loaded once per block, the grid persistent
+    over the M tiles) where it fits beside at least 3 slots of A; else W
+    streams beside A through the ring. A layer bound by its bytes (Swin-T's
+    stages 0-1 in bf16) takes a tile of min(96, N) columns if two blocks then
+    fit on an SM (``bps`` 2: twice the warps in the epilogue, which moves
+    most of its bytes); any other layer the widest tile of at least
+    min(96, N) columns, one block per SM. The grid is the N tiles times as
+    many M groups as fill the card's SMs. Raises ``ValueError`` for a shape
+    the kernel does not take."""
+    bke = GEMM_ROW_BYTES // (4 if f32 else 2)
+    if M < 1 or N < 32 or N % 32 or K < bke or K % bke:
+        raise ValueError(f"gemm kernel takes N % 32 == 0 and K % {bke} == 0, "
+                         f"not M={M} N={N} K={K}")
+    dup = 2 if f32 else 1
+    elem = 4 if f32 else 2
+    a_step = GEMM_BM * GEMM_ROW_BYTES * dup
+    ksteps = K // bke
+    kpss = [k for k in (4, 3, 2, 1) if ksteps % k == 0]
+    cands = [bn for bn in GEMM_BNS if N % bn == 0]
+    # 3xTF32 runs three tf32 products at the dense TF32 rate
+    t_ops = 2.0 * M * N * K / (GEMM_PEAK_TF32 / 3 if f32 else GEMM_PEAK_BF16)
+    byte_bound = (M * K + N * K + M * N) * elem / GEMM_PEAK_BYTES > t_ops
+
+    def resident_plan(bn, cap):
+        for kps in kpss:
+            free = cap - gemm_smem_bytes(f32, bn, 0, kps, True, ksteps) - 16
+            n = min(8, free // (kps * a_step + 16))
+            if n >= 3:
+                return bn, n, kps, True
+        return None
+
+    plan, bps = None, 1
+    if byte_bound and min(96, N) in cands:
+        plan = resident_plan(min(96, N), GEMM_SMEM_MAX2)
+        bps = 2 if plan else 1
+    if plan is None:
+        for bn in cands:
+            if bn < min(96, cands[0]):
+                break
+            plan = resident_plan(bn, GEMM_SMEM_MAX)
+            if plan:
+                break
+    if plan is None:
+        bn = cands[0]
+        w_step = bn * GEMM_ROW_BYTES * dup
+        for kps in kpss:
+            free = GEMM_SMEM_MAX - gemm_smem_bytes(f32, bn, 0, kps, False, ksteps) - 16
+            n = min(6, free // (kps * (a_step + w_step) + 16))
+            if n >= 3 or (kps == 1 and n >= 2):
+                plan = (bn, n, kps, False)
+                break
+    if plan is None:
+        raise ValueError(f"gemm kernel has no plan for M={M} N={N} K={K}")
+    bn, stages, kps, resident = plan
+    smem = gemm_smem_bytes(f32, bn, stages, kps, resident, ksteps)
+    assert smem <= (GEMM_SMEM_MAX2 if bps == 2 else GEMM_SMEM_MAX)
+    n_tiles = N // bn
+    m_tiles = -(-M // GEMM_BM)
+    groups = max(1, min(m_tiles, bps * num_sms // n_tiles))
+    return {"bn": bn, "wn": GEMM_WN[bn], "stages": stages, "kps": kps, "resident": resident,
+            "bps": bps, "smem": smem, "ksteps": ksteps, "n_tiles": n_tiles,
+            "m_tiles": m_tiles, "grid": n_tiles * groups}
+
+
+def tf32_split(x: torch.Tensor):
+    """float32 ``x`` as ``(hi, lo)``: ``hi`` rounded to tf32 (nearest, ties
+    away from zero; the low 13 bits zero), ``lo = x - hi`` (exact in f32),
+    as ``gemm_sm90_kernel``'s 3xTF32 form splits both operands."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
 
 
 def _partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -221,19 +343,63 @@ def _row_maps(B, Dp, Hp, Wp, window, roll, device):
             _partition(idx, window).reshape(-1).contiguous())
 
 
-def _gemm(lib, stream, a, w_nk, bias, out, ldo, mode, res=None, ldr=0,
+# weight operands of the GEMM, [out, in] rows (float32: the tf32 split),
+# per source weight; keyed on its storage, offset, layout and version
+# counter (a weight changed in place is never read stale), and dropped when
+# the tensor that owns the storage is freed (its address could then be
+# reused under the same key)
+_WEIGHTS: "collections.OrderedDict" = collections.OrderedDict()
+_WEIGHTS_KEPT = 128
+
+
+def _weight_operands(w: torch.Tensor, dev, dt, q_scale: Optional[float] = None):
+    """``(w_nk, w_lo)``: the ``[in, out]`` weight ``w`` as ``[out, in]`` rows
+    in ``dt`` on ``dev`` (the q columns scaled by ``q_scale`` and rounded,
+    as :func:`_fold_q_scale`), and for float32 its tf32 split (``w_nk`` the
+    hi half, ``w_lo`` the lo); ``w_lo`` is None for bf16."""
+    key = (w.untyped_storage().data_ptr(), w.storage_offset(), tuple(w.shape), w.stride(),
+           w.dtype, w._version, str(dev), dt, q_scale)
+    hit = _WEIGHTS.get(key)
+    if hit is not None:
+        _WEIGHTS.move_to_end(key)
+        return hit
+    with torch.no_grad():
+        src = w.detach()
+        if q_scale is not None:
+            C = src.shape[0]
+            src = torch.cat([(src[:, :C].float() * q_scale).to(src.dtype), src[:, C:]], dim=1)
+        w_nk = src.to(device=dev, dtype=dt).t().contiguous()
+        ops = tf32_split(w_nk) if dt == torch.float32 else (w_nk, None)
+    _WEIGHTS[key] = ops
+    weakref.finalize(w if w._base is None else w._base, _WEIGHTS.pop, key, None)
+    if len(_WEIGHTS) > _WEIGHTS_KEPT:
+        _WEIGHTS.popitem(last=False)
+    return ops
+
+
+@functools.lru_cache(maxsize=8)
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gemm(lib, stream, a, w_ops, bias, out, ldo, mode, res=None, ldr=0,
           rowmap=None, gates=None, gate_col=0, rows_per_sample=1):
+    w_nk, w_lo = w_ops
     M, K = a.shape
     N = w_nk.shape[0]
-    if (a.stride(1) != 1 or a.stride(0) % 8 or K % 8 or N % 8 or ldo % 8 or ldr % 8
-            or not w_nk.is_contiguous()):
-        raise ValueError("gemm kernel needs 16-byte aligned rows (K, N, strides % 8 == 0)")
-    entry = lib.vgqa_gemm_f32 if a.dtype == torch.float32 else lib.vgqa_gemm_bf16
+    f32 = a.dtype == torch.float32
+    align = 4 if f32 else 8                   # elements of 16 bytes
+    if (a.stride(1) != 1 or a.stride(0) % align or ldo % align or ldr % align
+            or a.data_ptr() % 16 or out.data_ptr() % 16 or (res is not None and res.data_ptr() % 16)):
+        raise ValueError("gemm kernel needs 16-byte aligned rows of A, out and res")
+    plan = gemm_plan(M, N, K, f32, _num_sms(a.device))
+    entry = lib.vgqa_gemm_sm90_f32 if f32 else lib.vgqa_gemm_sm90
     build.check(entry(
-        a.data_ptr(), a.stride(0), w_nk.data_ptr(), w_nk.stride(0),
+        a.data_ptr(), a.stride(0), w_nk.data_ptr(), build.ptr(w_lo), w_nk.stride(0),
         build.ptr(bias), out.data_ptr(), ldo, M, N, K, mode,
         build.ptr(res), ldr, build.ptr(rowmap), build.ptr(gates), gate_col,
-        rows_per_sample, stream), "swin block gemm")
+        rows_per_sample, plan["bn"], plan["stages"], plan["kps"], int(plan["resident"]),
+        plan["bps"], plan["grid"], stream), "swin block gemm")
 
 
 def _ln_rows(lib, stream, x, rowmap, scale, bias, valid, n_valid, out, M, C):
@@ -273,10 +439,8 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
     def vec(t):
         return t.to(device=dev, dtype=dt).contiguous()
 
-    def weight_nk(w):                     # [in, out] -> [out, in] rows
-        return w.to(device=dev, dtype=dt).t().contiguous()
-
-    wq, bq = _fold_q_scale(wqkv, bqkv, C, wa.HEAD_DIM ** -0.5)
+    scale = wa.HEAD_DIM ** -0.5
+    bq = torch.cat([(bqkv[:C].float() * scale).to(bqkv.dtype), bqkv[C:]])
     n_valid = 1
     if valid is not None:
         valid = valid.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
@@ -290,20 +454,20 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
     _ln_rows(lib, st, src, read_map, vec(ln1_scale), vec(ln1_bias), valid, n_valid,
              h, M, C)
     qkv = torch.empty((M, 3 * C), dtype=dt, device=dev)
-    _gemm(lib, st, h, weight_nk(wq), vec(bq), qkv, 3 * C, _EPI_BIAS)
+    _gemm(lib, st, h, _weight_operands(wqkv, dev, dt, scale), vec(bq), qkv, 3 * C, _EPI_BIAS)
     attn = torch.empty((M, C), dtype=dt, device=dev)
     q3 = qkv.view(W, N, 3 * C)
     wa.launch(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:],
               attn.view(W, N, C), num_heads, 1.0, bias=vec(bias), region=region)
     x1 = torch.empty((M, C), dtype=dt, device=dev)
-    _gemm(lib, st, attn, weight_nk(wproj), vec(bproj), x1, C, _EPI_RES_GATHER,
+    _gemm(lib, st, attn, _weight_operands(wproj, dev, dt), vec(bproj), x1, C, _EPI_RES_GATHER,
           res=src, ldr=C, rowmap=read_map, gates=gates, gate_col=0,
           rows_per_sample=rows_per_sample)
     h2 = torch.empty((M, C), dtype=dt, device=dev)
     _ln_rows(lib, st, x1, None, vec(ln2_scale), vec(ln2_bias), None, 1, h2, M, C)
     f = torch.empty((M, wfc1.shape[1]), dtype=dt, device=dev)
-    _gemm(lib, st, h2, weight_nk(wfc1), vec(bfc1), f, f.shape[1], _EPI_GELU)
-    _gemm(lib, st, f, weight_nk(wfc2), vec(bfc2), out, C, _EPI_RES_SCATTER,
+    _gemm(lib, st, h2, _weight_operands(wfc1, dev, dt), vec(bfc1), f, f.shape[1], _EPI_GELU)
+    _gemm(lib, st, f, _weight_operands(wfc2, dev, dt), vec(bfc2), out, C, _EPI_RES_SCATTER,
           res=x1, ldr=C, rowmap=write_map, gates=gates, gate_col=1,
           rows_per_sample=rows_per_sample)
 

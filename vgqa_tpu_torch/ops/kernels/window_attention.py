@@ -16,23 +16,18 @@ bytes of q/k/v, as long as the [N, N] logits stay out of device memory (a
 plain version writes and re-reads them, plus the probabilities, per head).
 At the encoder's 420 px call (W 128, N 418) the exponentials bound it:
 178.9 M ex2 take 0.0428 ms on the SFUs, above the bytes (0.0328 ms) and
-the products (0.023 ms). bf16 takes one of two kernels:
-
-* the encoder form (a key mask or no mask; no bias, no region ids):
-  ``window_attn_sm90_kernel`` in ``csrc/window_attn_sm90.cu``, on K4's
-  Hopper pipeline. A block owns one (window row, head): one thread starts
-  TMA loads of all of its Q, K and V (64-row boxes, 64-byte swizzle, rows
-  past N zero-filled) at once, and two warpgroups take its 64-row query
-  tiles in turn; S = QK^T and P.V are ``wgmma`` (P from registers, V as an
-  MN-major operand), the last key tile at the smallest width that covers
-  it (n40 at N = 418), the softmax online in base 2 with the key term
-  folded into one FFMA per logit.
-* with ``bias`` or ``region`` (K1's attention phase, tests):
-  ``window_attn_kernel`` in ``csrc/kernels.cu``, one block per (window,
-  head, 64-query tile), that window-head's K and V^T in shared memory as
-  bf16, S = QK^T and P.V on ``mma.sync`` m16n8k16 with an online softmax
-  over blocks of 64 keys. Moving it onto the Hopper kernel with bias and
-  region terms is K1's own redesign.
+the products (0.023 ms). bf16 takes ``window_attn_sm90_kernel`` in
+``csrc/window_attn_sm90.cu``, on K4's Hopper pipeline. A block owns one
+(window row, head): one thread starts TMA loads of all of its Q, K and V
+(64-row boxes, 64-byte swizzle, rows past N zero-filled) at once, and two
+warpgroups take its 64-row query tiles in turn; S = QK^T and P.V are
+``wgmma`` (P from registers, V as an MN-major operand), the last key tile
+at the smallest width that covers it (n40 at N = 418), the softmax online
+in base 2 with the key term folded into one FFMA per logit. With ``bias``
+or ``region`` (K1's attention phase, N = 392) the kernel's terms form adds
+the bias (loaded from device memory into registers in the accumulator's
+layout while the S product runs, one more FFMA per logit) and the region
+compare-and-select.
 
 P is rounded to bf16 as the P.V operand (the TPU kernel does the same);
 the row max and sum stay f32.
@@ -110,8 +105,7 @@ def window_attention_reference(
 def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
            region=None, key_valid=None) -> None:
     """Launch K2 on the current stream (no counting): float32 takes
-    ``window_attn_f32_kernel``; bf16 takes ``window_attn_sm90_kernel``
-    without ``bias`` and ``region``, else ``window_attn_kernel``.
+    ``window_attn_f32_kernel``, bf16 ``window_attn_sm90_kernel``.
 
     q/k/v/out are ``[W, N, >=C]`` views whose last dim is contiguous; heads
     sit at channel offsets h*32 of each token row."""
@@ -146,17 +140,16 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
     lib = build.load_library()
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                v.stride(0), v.stride(1), out.stride(0), out.stride(1))
-    if not f32 and bias is None and region is None:
-        err = lib.vgqa_window_attention_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
-            *strides, build.ptr(key_valid), n_kvalid, float(scale),
-            build.stream_handle(q.device))
-    else:
-        entry = lib.vgqa_window_attention_f32 if f32 else lib.vgqa_window_attention
-        err = entry(
+    if f32:
+        err = lib.vgqa_window_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
             *strides, build.ptr(bias), build.ptr(region), n_region,
             build.ptr(key_valid), n_kvalid, float(scale), build.stream_handle(q.device))
+    else:
+        err = lib.vgqa_window_attention_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
+            *strides, build.ptr(key_valid), n_kvalid, build.ptr(bias), build.ptr(region),
+            n_region, float(scale), build.stream_handle(q.device))
     build.check(err, "window_attention")
 
 
