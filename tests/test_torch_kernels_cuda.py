@@ -631,9 +631,9 @@ K2_TERMS_N = [392, 98, 130, 49]
 def test_window_attention_sm90_terms_cuda(cuda, N, terms):
     """K2's terms form (window_attn_sm90_kernel with the rel-pos bias and/or
     the SW-MSA region ids: K1's attention phase) at N = 392 (K1's windows),
-    98, 130 and an odd 49 (the bias read one element at a time), 16 windows
-    x 3 heads, region ids of 4 rows repeated, against the plain version; one
-    launch."""
+    and 98, 130 and 49, whose bias rows the wrapper pads to a multiple of 8
+    keys for the kernel's TMA boxes; 16 windows x 3 heads, region ids of 4
+    rows repeated, against the plain version; one launch."""
     g = torch.Generator(device=cuda).manual_seed(N)
     W, H = 16, 3
     qkv = torch.randn(W, N, 3 * H * 32, generator=g, device=cuda).bfloat16()

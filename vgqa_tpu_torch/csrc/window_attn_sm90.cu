@@ -56,15 +56,16 @@
 //   while the P V product runs (as K4 does).
 // - The terms form (bias or region ids given) is its own instantiation
 //   (TERMS): the region id of every key sits in shared memory beside the
-//   key terms, each thread keeps its two rows' ids, and the bias of the
-//   thread's (row, key pair) elements of a key tile is loaded from device
-//   memory (L2: 0.9-7.4 MB per stage) into registers in the accumulator's
-//   layout before the tile's S product is issued, so the loads fly while
-//   the tensor cores run. Each logit then takes a second FFMA (bias *
-//   log2(e)) and a compare-and-select (region). Two blocks per SM, as
-//   for the key-term form: ptxas fits the terms form in 128 registers with
-//   no spill, and four warpgroups per SM take 0.67x the attention time of
-//   two (K1's serving shapes, chip_k4.py --kernel k1).
+//   key terms, and each thread keeps its two rows' ids. The bias [H, N, N]
+//   (L2-resident: 0.9-7.4 MB per stage) reaches each warpgroup as TMA
+//   boxes of its 64 query rows x 64 keys (128-byte swizzle, zero-filled
+//   past N; rows padded to a multiple of 8 keys by the host) in a slot of
+//   its own: at each key tile the warpgroup reads the box's (row, key
+//   pair) elements in the accumulator's layout into registers, and one
+//   thread then loads the next box of its sequence into the slot, a whole
+//   key tile ahead of its use. Each logit then takes a second FFMA (bias *
+//   log2(e)) and a compare-and-select (region). Two blocks per SM, as for
+//   the key-term form (128 registers, 107 KB of shared memory at N = 392).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -87,14 +88,17 @@ constexpr int K2_THREADS = 128 * K2_WG;
 constexpr int K2_T = 64;                        // rows of a query tile = keys of a key tile
 constexpr int K2_TILE = K2_T * K2_D * 2;        // 4,096 bytes
 constexpr int K2_MAX_TILES = 16;                // N <= 1024: 197 KB of shared memory
+constexpr int K2_BIAS = K2_T * K2_T * 2;        // 8,192 bytes: a warpgroup's bias box
 constexpr float K2_NEG = -1e30f;
 constexpr float K2_LOG2E = 1.4426950408889634f;
 
 // shared memory from a 1024-byte aligned base: Q [nt][64][32], K and V
-// likewise, the key terms [nt * 64], the keys' region ids [nt * 64] (terms
-// form only) and one mbarrier per 64-row index
+// likewise, (terms form) a bias box per warpgroup, the key terms [nt * 64],
+// (terms form) the keys' region ids [nt * 64], one mbarrier per 64-row
+// index and (terms form) one per bias box
 __host__ __device__ constexpr int k2_smem_bytes(int nt, bool terms) {
-  return 3 * nt * K2_TILE + nt * K2_T * 4 * (terms ? 2 : 1) + 8 * nt + 1024;   // + alignment slack
+  return 3 * nt * K2_TILE + (terms ? K2_WG * K2_BIAS : 0) + nt * K2_T * 4 * (terms ? 2 : 1) +
+         8 * (nt + (terms ? K2_WG : 0)) + 1024;   // + alignment slack
 }
 
 struct K2Params {
@@ -103,7 +107,7 @@ struct K2Params {
   const float* key_valid;      // [n_kvalid, N], > 0 = attendable key, or null
   int n_kvalid, N, nt;
   float scale2;                // scale * log2(e)
-  const bf16* bias;            // [H, N, N] or null (terms form)
+  const bf16* bias;            // [H, N, ldb] or null (terms form; read through the map tb)
   const int* region;           // [n_region, N] or null (terms form)
   int n_region;
 };
@@ -114,20 +118,26 @@ template <int NBT, bool TERMS>
 __global__ void __launch_bounds__(K2_THREADS, 2)
 window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, K2Params p) {
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tb, K2Params p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
   const int nt = p.nt, N = p.N;
   const uint32_t q_s = base, k_s = base + nt * K2_TILE, v_s = base + 2 * nt * K2_TILE;
-  float* terms = reinterpret_cast<float*>(sbase + 3 * nt * K2_TILE);
+  const uint32_t b_s = base + 3 * nt * K2_TILE;                   // [K2_WG] bias boxes (TERMS)
+  const int terms_off = 3 * nt * K2_TILE + (TERMS ? K2_WG * K2_BIAS : 0);
+  float* terms = reinterpret_cast<float*>(sbase + terms_off);
   int* kreg = reinterpret_cast<int*>(terms + nt * K2_T);            // [nt * 64] (TERMS)
-  const uint32_t bar = base + 3 * nt * K2_TILE + nt * K2_T * 4 * (TERMS ? 2 : 1);   // [nt]
+  const uint32_t bar = base + terms_off + nt * K2_T * 4 * (TERMS ? 2 : 1);   // [nt]
+  const uint32_t bbar = bar + 8 * nt;                              // [K2_WG] (TERMS)
   const int w = blockIdx.x, h = blockIdx.y;
 
   if (threadIdx.x == 0) {
     for (int j = 0; j < nt; ++j) mbar_init(bar + 8 * j, 1);
+    if (TERMS)
+      for (int g2 = 0; g2 < K2_WG; ++g2) mbar_init(bbar + 8 * g2, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int j = 0; j < nt; ++j) {
       mbar_expect_tx(bar + 8 * j, 3 * K2_TILE);
@@ -156,37 +166,41 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t pp[4][4];                            // P of the tile whose P V is next
   float m0, m1, l0, l1;
   uint64_t qdesc;
-  // terms form: this thread's two query rows (their region ids, their bias
-  // rows of head h) and the bias of a key tile in the accumulator layout:
-  // bb[r][j] holds keys 8 j + 2 q4, + 1 of row r as a bf16 pair
-  int row0 = 0, row1 = 0, rq0 = 0, rq1 = 0;
+  // terms form: this thread's two query rows (their region ids) and the
+  // bias of a key tile in the accumulator layout: bb[r][j] holds keys
+  // 8 j + 2 q4, + 1 of row r as a bf16 pair, read from the warpgroup's bias
+  // box; the box's next load (the warpgroup's next (query tile, key tile))
+  // is issued as soon as every thread has read it
+  int rq0 = 0, rq1 = 0;
   uint32_t bb[2][8];
-  const bf16* bias_h = TERMS && p.bias ? p.bias + (long long)h * N * N : nullptr;
-  const bool bias_pairs = (N % 2) == 0;         // 4-byte aligned key pairs
-  auto load_bias = [&](auto nb_tag, int t) {
+  const bool has_bias = TERMS && p.bias != nullptr;
+  const uint32_t my_box = b_s + wg * K2_BIAS, my_bar = bbar + 8 * wg;
+  int bias_loads = 0;                           // boxes of this warpgroup consumed so far
+  auto issue_box = [&](int qt_, int t_) {       // one thread of the warpgroup
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(my_bar, K2_BIAS);
+    tma_load(my_box, &tb, my_bar, t_ * K2_T, qt_ * K2_T, h);
+  };
+  if (has_bias && threadIdx.x % 128 == 0 && wg < nt) issue_box(wg, 0);
+  auto read_bias = [&](auto nb_tag, int qt_, int t) {
     constexpr int NB = decltype(nb_tag)::value;
     if constexpr (TERMS) {
-      if (!bias_h) return;
+      if (!has_bias) return;
+      mbar_wait(my_bar, bias_loads & 1);
+      ++bias_loads;
+      const unsigned char* box = sbase + (my_box - base);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = r ? row1 : row0;
+        const int row = (warp % 4) * 16 + g + 8 * r;            // 128-byte rows, swizzled
 #pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int key = t * K2_T + 8 * j + 2 * q4;
-          const bf16* src = bias_h + (long long)row * N + key;
-          uint32_t v = 0u;
-          if (row < N && key < N) {
-            if (bias_pairs) {
-              v = __ldg(reinterpret_cast<const unsigned int*>(src));
-            } else {
-              const uint32_t lo = __ldg(reinterpret_cast<const unsigned short*>(src));
-              const uint32_t hi = key + 1 < N
-                  ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(src + 1)) : 0u;
-              v = lo | (hi << 16);
-            }
-          }
-          bb[r][j] = v;
-        }
+        for (int j = 0; j < NB; ++j)
+          bb[r][j] = *reinterpret_cast<const uint32_t*>(
+              box + row * 128 + (((j ^ (row & 7)) << 4) | (4 * q4)));
+      }
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");   // the box is read
+      if (threadIdx.x % 128 == 0) {
+        if (t + 1 < nt) issue_box(qt_, t + 1);
+        else if (qt_ + K2_WG < nt) issue_box(qt_ + K2_WG, 0);
       }
     }
   };
@@ -248,7 +262,7 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           S[4 * j + 2] += kr.x != rq1 ? K2_NEG : 0.f;
           S[4 * j + 3] += kr.y != rq1 ? K2_NEG : 0.f;
         }
-        if (bias_h) {                           // + bias * log2(e)
+        if (has_bias) {                         // + bias * log2(e)
           const float2 b0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb[0][j]));
           const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb[1][j]));
           S[4 * j] = fmaf(b0.x, K2_LOG2E, S[4 * j]);
@@ -310,8 +324,8 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   };
   // one step t >= 1: S_t and P_{t-1} V_{t-1} (a full tile) in flight
   // together, the softmax of S_t overlapping the P V product
-  auto step = [&](auto nb_tag, int t) {
-    load_bias(nb_tag, t);
+  auto step = [&](auto nb_tag, int qt_, int t) {
+    read_bias(nb_tag, qt_, t);
     mbar_wait(bar + 8 * t, 0);
     issue_s(nb_tag, t);
     issue_pv(full_tile, t - 1);
@@ -325,8 +339,8 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     rescale(c0, c1);
     pack(nb_tag);
   };
-  auto first = [&](auto nb_tag) {
-    load_bias(nb_tag, 0);
+  auto first = [&](auto nb_tag, int qt_) {
+    read_bias(nb_tag, qt_, 0);
     mbar_wait(bar, 0);
     issue_s(nb_tag, 0);
     wgmma_wait0();
@@ -349,18 +363,17 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     m0 = m1 = -INFINITY;
     l0 = l1 = 0.f;
     if constexpr (TERMS) {
-      row0 = qt * K2_T + (warp % 4) * 16 + g;
-      row1 = row0 + 8;
-      rq0 = row0 < N ? kreg[row0] : 0;
-      rq1 = row1 < N ? kreg[row1] : 0;
+      const int r0 = qt * K2_T + (warp % 4) * 16 + g, r1 = r0 + 8;
+      rq0 = r0 < N ? kreg[r0] : 0;
+      rq1 = r1 < N ? kreg[r1] : 0;
     }
     if (nt == 1) {
-      first(last_tile);
+      first(last_tile, qt);
       last_pv(last_tile, 0);
     } else {
-      first(full_tile);
-      for (int t = 1; t < nt - 1; ++t) step(full_tile, t);
-      step(last_tile, nt - 1);
+      first(full_tile, qt);
+      for (int t = 1; t < nt - 1; ++t) step(full_tile, qt, t);
+      step(last_tile, qt, nt - 1);
       last_pv(last_tile, nt - 1);
     }
     l0 = qsum(l0);
@@ -382,7 +395,7 @@ window_attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int NBT, bool TERMS>
 int launch_form(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                const K2Params& p, dim3 grid, cudaStream_t st) {
+                const CUtensorMap& tb, const K2Params& p, dim3 grid, cudaStream_t st) {
   static bool configured = false;     // set once: the dynamic shared memory limit, and
   if (!configured) {                  // all of L1 as shared memory (two blocks per SM)
     cudaError_t e = cudaFuncSetAttribute(window_attn_sm90_kernel<NBT, TERMS>,
@@ -396,15 +409,15 @@ int launch_form(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap&
     configured = true;
   }
   window_attn_sm90_kernel<NBT, TERMS>
-      <<<grid, K2_THREADS, k2_smem_bytes(p.nt, TERMS), st>>>(tq, tk, tv, p);
+      <<<grid, K2_THREADS, k2_smem_bytes(p.nt, TERMS), st>>>(tq, tk, tv, tb, p);
   return (int)cudaGetLastError();
 }
 
 template <int NBT>
 int launch_nbt(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-               const K2Params& p, dim3 grid, cudaStream_t st) {
-  return (p.bias || p.region) ? launch_form<NBT, true>(tq, tk, tv, p, grid, st)
-                              : launch_form<NBT, false>(tq, tk, tv, p, grid, st);
+               const CUtensorMap& tb, const K2Params& p, dim3 grid, cudaStream_t st) {
+  return (p.bias || p.region) ? launch_form<NBT, true>(tq, tk, tv, tb, p, grid, st)
+                              : launch_form<NBT, false>(tq, tk, tv, tb, p, grid, st);
 }
 
 }  // namespace
@@ -414,17 +427,19 @@ extern "C" {
 // K2: q/k/v [W, N, H*32] bf16 (strides in elements, multiples of 8,
 // channel-contiguous rows, 16-byte aligned bases), out likewise, key_valid
 // [n_kvalid, N] float or null (row w reads row w % n_kvalid), bias [H, N, N]
-// bf16 or null, region [n_region, N] int32 or null (row w reads w % n_region).
+// bf16 with rows of ldb elements (ldb >= N, a multiple of 8; 16-byte aligned
+// base) or null, region [n_region, N] int32 or null (row w reads w % n_region).
 int vgqa_window_attention_sm90(const void* q, const void* k, const void* v, void* out,
                                int W, int N, int H,
                                long long q_win, long long q_row, long long k_win,
                                long long k_row, long long v_win, long long v_row,
                                long long o_win, long long o_row,
                                const float* key_valid, int n_kvalid, const void* bias,
-                               const int* region, int n_region, float scale, void* stream) {
+                               long long ldb, const int* region, int n_region, float scale,
+                               void* stream) {
   const int nt = (N + K2_T - 1) / K2_T;
   if (W < 1 || H < 1 || N < 1 || nt > K2_MAX_TILES || H > 65535 || n_kvalid < 1 ||
-      n_region < 1 || ((uintptr_t)bias % 4) ||
+      n_region < 1 || (bias && (ldb < N || ldb % 8 || (uintptr_t)bias % 16)) ||
       (q_row | k_row | v_row) % 8 || (W > 1 && (q_win | k_win | v_win) % 8) ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
@@ -434,19 +449,25 @@ int vgqa_window_attention_sm90(const void* q, const void* k, const void* v, void
       !make_map_3d(&tk, k, {C, N, W}, k_row, k_win, {K2_D, K2_T, 1}, CU_TENSOR_MAP_SWIZZLE_64B) ||
       !make_map_3d(&tv, v, {C, N, W}, v_row, v_win, {K2_D, K2_T, 1}, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
+  // the bias [H][N][ldb] as boxes of 64 rows x 64 keys (keys past ldb and
+  // rows past N read as zeros; the host pads keys N .. ldb - 1 with zeros)
+  CUtensorMap tb = tq;
+  if (bias && !make_map_3d(&tb, bias, {ldb, N, H}, ldb, (long long)N * ldb, {K2_T, K2_T, 1},
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   const K2Params p{(bf16*)out, o_win, o_row, key_valid, n_kvalid, N, nt, scale * K2_LOG2E,
                    (const bf16*)bias, region, n_region};
   const dim3 grid(W, H);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   switch ((N - (nt - 1) * K2_T + 7) / 8) {      // 8-key blocks of the last key tile
-    case 1: return launch_nbt<1>(tq, tk, tv, p, grid, st);
-    case 2: return launch_nbt<2>(tq, tk, tv, p, grid, st);
-    case 3: return launch_nbt<3>(tq, tk, tv, p, grid, st);
-    case 4: return launch_nbt<4>(tq, tk, tv, p, grid, st);
-    case 5: return launch_nbt<5>(tq, tk, tv, p, grid, st);
-    case 6: return launch_nbt<6>(tq, tk, tv, p, grid, st);
-    case 7: return launch_nbt<7>(tq, tk, tv, p, grid, st);
-    default: return launch_nbt<8>(tq, tk, tv, p, grid, st);
+    case 1: return launch_nbt<1>(tq, tk, tv, tb, p, grid, st);
+    case 2: return launch_nbt<2>(tq, tk, tv, tb, p, grid, st);
+    case 3: return launch_nbt<3>(tq, tk, tv, tb, p, grid, st);
+    case 4: return launch_nbt<4>(tq, tk, tv, tb, p, grid, st);
+    case 5: return launch_nbt<5>(tq, tk, tv, tb, p, grid, st);
+    case 6: return launch_nbt<6>(tq, tk, tv, tb, p, grid, st);
+    case 7: return launch_nbt<7>(tq, tk, tv, tb, p, grid, st);
+    default: return launch_nbt<8>(tq, tk, tv, tb, p, grid, st);
   }
 }
 

@@ -131,14 +131,15 @@ def gemm_plan(M: int, N: int, K: int, f32: bool, num_sms: int = H100_SMS) -> dic
     64-byte row (32 bf16, 16 float), so K is never padded. A ring slot
     holds ``kps`` k-steps (the most of 4, 3, 2, 1 that divides the k-steps
     and leaves at least 3 slots), so one barrier wait and one commit cover
-    them while the producer loads two slots ahead. W stays ``resident`` (all
-    of its k-steps of the N tile loaded once per block, the grid persistent
-    over the M tiles) where it fits beside at least 3 slots of A; else W
-    streams beside A through the ring. A layer bound by its bytes (Swin-T's
-    stages 0-1 in bf16) takes a tile of min(96, N) columns if two blocks then
-    fit on an SM (``bps`` 2: twice the warps in the epilogue, which moves
-    most of its bytes); any other layer the widest tile of at least
-    min(96, N) columns, one block per SM. The grid is the N tiles times as
+    them while the producer loads two slots ahead. A layer bound by its
+    bytes (Swin-T's stages 0-1) keeps W ``resident`` (all of its k-steps of
+    the N tile loaded once per block, the grid persistent over the M tiles)
+    beside at least 3 slots of A: a tile of min(96, N) columns if two blocks
+    then fit on an SM (``bps`` 2: twice the warps in the epilogue, which
+    moves most of its bytes), else the widest tile of at least min(96, N)
+    columns. A layer bound by its products, and one whose W does not fit,
+    streams W beside A through the ring (from L2) in the widest tile, where
+    the ring has room for more k-steps per slot. The grid is the N tiles times as
     many M groups as fill the card's SMs. Raises ``ValueError`` for a shape
     the kernel does not take."""
     bke = GEMM_ROW_BYTES // (4 if f32 else 2)
@@ -167,7 +168,7 @@ def gemm_plan(M: int, N: int, K: int, f32: bool, num_sms: int = H100_SMS) -> dic
     if byte_bound and min(96, N) in cands:
         plan = resident_plan(min(96, N), GEMM_SMEM_MAX2)
         bps = 2 if plan else 1
-    if plan is None:
+    if plan is None and byte_bound:
         for bn in cands:
             if bn < min(96, cands[0]):
                 break

@@ -25,9 +25,9 @@ warpgroups take its 64-row query tiles in turn; S = QK^T and P.V are
 at the smallest width that covers it (n40 at N = 418), the softmax online
 in base 2 with the key term folded into one FFMA per logit. With ``bias``
 or ``region`` (K1's attention phase, N = 392) the kernel's terms form adds
-the bias (loaded from device memory into registers in the accumulator's
-layout while the S product runs, one more FFMA per logit) and the region
-compare-and-select.
+the bias (TMA boxes of 64 query rows x 64 keys, one key tile ahead of their
+use; rows padded here to a multiple of 8 keys; one more FFMA per logit) and
+the region compare-and-select.
 
 P is rounded to bf16 as the P.V operand (the TPU kernel does the same);
 the row max and sum stay f32.
@@ -49,6 +49,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from .dtypes import check_kernel_dtype
@@ -126,6 +127,8 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
         bias = bias.to(q.dtype).contiguous()
         if bias.shape != (num_heads, N, N):
             raise ValueError(f"bias shape {tuple(bias.shape)} != {(num_heads, N, N)}")
+        if not f32 and N % 8:           # the bf16 kernel's TMA boxes need 16-byte rows
+            bias = F.pad(bias, (0, -N % 8))
     n_region = n_kvalid = 1
     if region is not None:
         region = region.to(device=q.device, dtype=torch.int32).contiguous()
@@ -148,8 +151,9 @@ def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
     else:
         err = lib.vgqa_window_attention_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), W, N, num_heads,
-            *strides, build.ptr(key_valid), n_kvalid, build.ptr(bias), build.ptr(region),
-            n_region, float(scale), build.stream_handle(q.device))
+            *strides, build.ptr(key_valid), n_kvalid, build.ptr(bias),
+            0 if bias is None else bias.shape[-1], build.ptr(region), n_region,
+            float(scale), build.stream_handle(q.device))
     build.check(err, "window_attention")
 
 
