@@ -2,7 +2,7 @@
 checkout (for example the parent commit unpacked by ``git archive``), in
 turns.
 
-    python3 chip_k4.py [--kernel k4|k2|k5|k1|k1f32] [--other DIR] [--sass]
+    python3 chip_k4.py [--kernel k4|k2|k5|k1|k1f32|trainf32] [--other DIR] [--sass]
 
 Each timing run is its own process, in the order other, this, this, other,
 so that both trees see the card alike. A run imports ``vgqa_tpu_torch`` and
@@ -29,6 +29,19 @@ launch counter.
   block).
 * ``k1f32``: the same in float32 at the 12 block calls of a 64f@420 train
   step (K1_420_CASES, B = 1, DropPath gates), summed per step.
+* ``trainf32``: the whole float32 train step end to end, as this tree's
+  ``chip_smoke.train_steps`` takes it on each tree's package (that tree's
+  ``configs/grounding_vidstg.yaml``, 64f@420, V = 1, random weights from
+  seed 0, its checks and 2 steps), then
+  STEPS steps one at a time: CUDA-event ms and the host's ms to enqueue the
+  step (``chip_smoke.timed``; the host paces the step where the two agree),
+  and two profiled steps: wall, device busy, idle share, kernel launches,
+  K1's device ms, and where the device idles: before K1's first kernel,
+  inside K1's span and after its last kernel, and how far the device runs
+  past the host's last CUDA call. Timed twice in each run:
+  as ``chip_smoke.py`` runs it, with TF32 off in cuBLAS and cuDNN (every
+  float32 product in f32), then with PyTorch's default in cuDNN (TF32
+  convolutions; matmuls stay f32).
 
 ``--sass`` (with ``--other``) compiles both trees' ``csrc/flash_attention.cu``
 and ``csrc/flash_mha_sm90.cu`` and compares K3's forward
@@ -226,6 +239,95 @@ def child_k1(cs, f32: bool) -> dict:
     return out
 
 
+STEPS = 6          # trainf32: steps timed one at a time after the checked ones
+K1_F32_KERNELS = tuple(n for names in K1_PHASES[True].values() for n in names)
+
+
+def step_timeline(step) -> dict:
+    """One ``step()`` under torch.profiler: wall ms, the device's busy ms
+    (the union of kernel intervals), its kernels, K1's device ms, and the
+    device's idle ms before K1's first kernel, inside K1's span and after
+    its last kernel, and ``device_past_host_ms``, how long the last kernel
+    ends after the host's last CUDA call (the device's backlog at the end)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):      # a window the profiler left without K1's kernels is retaken
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev, host_end = [], 0.0
+        for e in prof.events():
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                dev.append((e.time_range.start, e.time_range.end, e.name))
+            elif e.name.startswith("cu") and "Synchronize" not in e.name:
+                host_end = max(host_end, e.time_range.end)
+        dev.sort()
+        k1 = [(a, b) for a, b, n in dev if any(k in n for k in K1_F32_KERNELS)]
+        if k1:
+            break
+    else:
+        raise RuntimeError(f"three profiled steps held no K1 kernel ({len(dev)} kernels)")
+    first, last = dev[0][0], max(b for _, b, _ in dev)
+    k1_lo, k1_hi = k1[0][0], max(b for _, b in k1)
+
+    def busy(lo, hi):           # us of [lo, hi] covered by some kernel
+        total, end = 0.0, lo
+        for a, b, _ in dev:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                total += b - a
+                end = b
+        return total
+
+    return {"wall_ms": wall, "busy_ms": busy(first, last) / 1e3,
+            "idle": 1 - busy(first, last) / 1e3 / wall, "kernels": len(dev),
+            "k1_device_ms": sum(b - a for a, b in k1) / 1e3,
+            "idle_before_k1_ms": (k1_lo - first - busy(first, k1_lo)) / 1e3,
+            "idle_in_k1_ms": (k1_hi - k1_lo - busy(k1_lo, k1_hi)) / 1e3,
+            "idle_after_k1_ms": (last - k1_hi - busy(k1_hi, last)) / 1e3,
+            "after_k1_ms": (last - k1_hi) / 1e3,
+            "device_past_host_ms": (last - host_end) / 1e3}
+
+
+def child_train_f32(cs, tree: str) -> dict:
+    """The float32 64f@420 train step of ``tree`` (see ``trainf32`` above)."""
+    import statistics
+
+    import torch
+
+    from vgqa_tpu_torch.config import build_default_cfg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = build_default_cfg()
+    cfg.merge_from_file(os.path.join(tree, "configs", "grounding_vidstg.yaml"))
+    cfg.OUTPUT_DIR = ""
+    cfg.freeze()
+    run = cs.train_steps(dev, cs.card_line(), 420, cfg=cfg, steps=2)
+    state, step_fn, args = run["trainer"].state, run["trainer"].step_fn, run["args"]
+
+    def step():
+        step_fn(state, *args, seed=0)
+
+    out = {"checked_ms_step": run["ms_step"], "peak_gb": run["peak_gb"]}
+    for setting in ("f32", "cudnn_tf32"):
+        torch.backends.cudnn.allow_tf32 = setting == "cudnn_tf32"
+        cs.timed(step, reps=1)                  # a warm-up step at this setting
+        timed = [cs.timed(step, reps=1) for _ in range(STEPS)]
+        prof = [step_timeline(step) for _ in range(2)]
+        events = [t[0] for t in timed]
+        out[setting] = {"events_ms": events, "host_ms": [t[1] for t in timed],
+                        "events_median_ms": statistics.median(events), "profiled": prof}
+    return out
+
+
 def gemm_layers(cs, sb, cases, batch, dtype) -> list:
     """csrc/gemm_sm90.cu alone at each distinct (stage, layer) of the cases:
     its plan, device ms per call, and the bytes / operations bound of the
@@ -273,6 +375,10 @@ def gemm_layers(cs, sb, cases, batch, dtype) -> list:
 def child(tree: str, kernel: str) -> dict:
     sys.path.insert(0, tree)
     cs = _smoke()
+    if kernel == "trainf32":
+        out = child_train_f32(cs, tree)
+        out["profiler_windows_retaken"] = cs.RETAKEN
+        return out
     if kernel in ("k1", "k1f32"):
         out = child_k1(cs, kernel == "k1f32")
         out["profiler_windows_retaken"] = cs.RETAKEN
@@ -344,7 +450,8 @@ def sass_report(other: str) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("k4", "k2", "k5", "k1", "k1f32"), default="k4")
+    ap.add_argument("--kernel", choices=("k4", "k2", "k5", "k1", "k1f32", "trainf32"),
+                    default="k4")
     ap.add_argument("--other", help="another checkout to measure in turns with this one")
     ap.add_argument("--sass", action="store_true",
                     help="compare K3-forward and K4 SASS with --other")
@@ -374,6 +481,26 @@ def main() -> int:
                           if ln.startswith("RESULT ")][-1][7:])
         for line in res.pop("profiler_windows_retaken"):
             print(f"{label} profiler window short: {line}", flush=True)
+        if a.kernel == "trainf32":
+            print(f"{label} f32 train step 64f@420: checked steps {res['checked_ms_step']:.1f} "
+                  f"ms/step, peak {res['peak_gb']:.2f} GiB  [{card}]", flush=True)
+            for setting in ("f32", "cudnn_tf32"):
+                r = res[setting]
+                ev = ", ".join(f"{x:.1f}" for x in r["events_ms"])
+                host = ", ".join(f"{x:.1f}" for x in r["host_ms"])
+                print(f"{label} f32 step [{setting}]: events {ev} ms (median "
+                      f"{r['events_median_ms']:.1f}); host enqueue {host} ms  [{card}]",
+                      flush=True)
+                for p in r["profiled"]:
+                    print(f"{label} profiled f32 step [{setting}]: wall {p['wall_ms']:.1f} ms, "
+                          f"device busy {p['busy_ms']:.1f} ms (idle {p['idle']:.3f}), "
+                          f"{p['kernels']} kernels, K1 device {p['k1_device_ms']:.3f} ms; device "
+                          f"idle {p['idle_before_k1_ms']:.1f} ms before K1, "
+                          f"{p['idle_in_k1_ms']:.1f} in its span, {p['idle_after_k1_ms']:.1f} of "
+                          f"the {p['after_k1_ms']:.1f} after it; last kernel ends "
+                          f"{p['device_past_host_ms']:.1f} ms after the host's last CUDA call"
+                          f"  [{card}]", flush=True)
+            continue
         if a.kernel in ("k1", "k1f32"):
             for r in res.pop("gemm_layers", []):
                 print(f"{label} GEMM alone C={r['C']} M={r['M']} {r['layer']}: device "

@@ -133,7 +133,7 @@ class IdTokenizer(jeng_mod.ByteTokenizer):
         return ",".join(str(int(i)) for i in ids)
 
 
-@pytest.mark.parametrize("kind", ["float", "int4"])
+@pytest.mark.parametrize("kind", ["float", "bf16", "int4"])
 def test_qa_export_loads_and_chats_like_jax(tmp_path, kind):
     lk, vk = (INT4_LLM, dict(llm_hidden_size=256)) if kind == "int4" else ({}, {})
     jl = JLLMConfig(**lk) if lk else JLLMConfig.tiny()
@@ -144,6 +144,9 @@ def test_qa_export_loads_and_chats_like_jax(tmp_path, kind):
     tree = jax.tree.map(np.array, jeng.params)
     if kind == "int4":
         tree["llm"] = jax.tree.map(np.array, jquant.quantize_llm_params_int4(tree["llm"]))
+    if kind == "bf16":
+        tree = jax.tree.map(lambda x: x.astype(jnp.bfloat16) if x.dtype == np.float32 else x,
+                            tree)
     model_dir = tmp_path / "qa"
     CheckpointManager(str(model_dir)).save("params", tree, tag=False)
     (model_dir / "vgqa_tpu_config.json").write_text(json.dumps(
@@ -154,6 +157,9 @@ def test_qa_export_loads_and_chats_like_jax(tmp_path, kind):
         tqa._load_engine(str(model_dir), device="cpu")
     _exporter().main(["qa", str(model_dir)])
     exported = tqa.load_exported_tree(str(model_dir / tqa.EXPORTED_TREE))
+    # torch leaves as stored: a bf16 tree is not widened on the host
+    floats = {v.dtype for v in jax.tree.leaves(exported) if v.is_floating_point()}
+    assert floats == ({torch.bfloat16} if kind == "bf16" else {torch.float32})
 
     # the port's QA loader: a bf16 engine holding the tree as the JAX loader
     # casts it (floats to bf16, quantized leaves and their scales as stored)
@@ -172,7 +178,9 @@ def test_qa_export_loads_and_chats_like_jax(tmp_path, kind):
     tqa._load_cached.cache_clear()
 
     # a float32 engine from the exported file: the JAX engine's greedy tokens
-    jeng.params = jax.tree.map(jnp.asarray, tree)
+    # (a bf16 tree widened exactly for both)
+    jeng.params = jax.tree.map(
+        lambda x: jnp.asarray(x, jnp.float32 if x.dtype == jnp.bfloat16 else x.dtype), tree)
     teng = teng_mod.QAEngine.init_random(
         LLMConfig(**lk) if lk else LLMConfig.tiny(),
         ViTConfig(**{**ViTConfig.tiny().__dict__, **vk}), device="cpu", tokenizer=tok,

@@ -1,10 +1,11 @@
 """Host code of K1's Hopper GEMM (csrc/gemm_sm90.cu), on the CPU.
 
 * ``swin_block.gemm_plan``, the launch plan the wrapper passes to the kernel,
-  for every linear layer of every Swin-T stage at 224 and 420 px and at the
-  tiny widths the card tests use: the N tile divides N, shared memory fits
-  an H100 block, W stays resident where it fits, the grid covers the N
-  tiles.
+  for every linear layer of every Swin-T and Swin-B stage at 224 and 420 px
+  and at the tiny widths the card tests use: the N tile divides N, shared
+  memory fits an H100 block, W stays resident where it fits, the grid
+  covers the N tiles. (The card tests hold these plans against the
+  library's own tile table and shared-memory formula.)
 * The 3xTF32 product the kernel computes for float32, emulated in torch
   from ``swin_block.tf32_split``: within 1e-5 of max |ref| of a float64
   product at K1's widths (K up to 3,072), and at least 10x closer than a
@@ -17,9 +18,13 @@ import torch
 
 from vgqa_tpu_torch.ops.kernels import swin_block as sb
 
-# (stage width C, tokens of a V = 2 forward at 224 px, of a 64f@420 step)
+# (stage width C, tokens of a V = 2 forward at 224 px, of a 64f@420 step):
+# Video Swin-T (and -S), then -B
 STAGES = [(96, 2 * 64 * 56 * 56, 64 * 112 * 112), (192, 2 * 64 * 28 * 28, 64 * 56 * 56),
-          (384, 2 * 64 * 14 * 14, 64 * 28 * 28), (768, 2 * 64 * 7 * 7, 64 * 14 * 14)]
+          (384, 2 * 64 * 14 * 14, 64 * 28 * 28), (768, 2 * 64 * 7 * 7, 64 * 14 * 14),
+          # Video Swin-B
+          (128, 2 * 64 * 56 * 56, 64 * 112 * 112), (256, 2 * 64 * 28 * 28, 64 * 56 * 56),
+          (512, 2 * 64 * 14 * 14, 64 * 28 * 28), (1024, 2 * 64 * 7 * 7, 64 * 14 * 14)]
 TINY = [(32, 2 * 16 * 14 * 14), (64, 2 * 16 * 7 * 7), (96, 2 * 16 * 14 * 14)]
 LAYERS = {"qkv": (3, 1), "proj": (1, 1), "fc1": (4, 1), "fc2": (1, 4)}
 
@@ -56,7 +61,7 @@ def test_gemm_plan(C, layer, M, f32):
     assert p["grid"] // p["n_tiles"] <= p["m_tiles"]
     assert p["grid"] <= max(p["bps"] * sb.H100_SMS, p["n_tiles"])
     # W resident wherever a tile of at least min(96, N) columns fits beside
-    # four A slots: every layer at stages 0-1 in bf16
+    # four A slots: every layer of widths up to 192 in bf16
     if not f32 and C <= 192:
         assert p["resident"]
     if p["resident"]:

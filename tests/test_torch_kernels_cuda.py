@@ -610,6 +610,41 @@ def test_gemm_sm90_cuda(cuda, C, layer, mode, maps, gated, dtype):
 
 
 @pytest.mark.cuda
+def test_gemm_plan_space_matches_library_cuda(cuda):
+    """The host's plan space (swin_block.GEMM_BNS, GEMM_WN, GEMM_SMEM_MAX*,
+    gemm_smem_bytes) against csrc/gemm_sm90.cu's own tile table and
+    shared-memory formula: the formula over a grid of plans, and every plan
+    gemm_plan returns at the CPU plan tests' shapes names a compiled tile
+    and the library's byte count."""
+    import ctypes
+
+    from test_torch_k1_plan import LAYERS, _cases
+
+    lib = build.load_library()
+    buf = (ctypes.c_int * 96)()
+    n = lib.vgqa_gemm_sm90_tiles(ctypes.cast(buf, ctypes.c_void_p), 32)
+    assert 0 < n <= 32
+    tiles = {tuple(buf[3 * i:3 * i + 3]) for i in range(n)}
+    assert {(bn, wn) for bn, wn, bps in tiles if bps == 1} == {
+        (bn, sb.GEMM_WN[bn]) for bn in sb.GEMM_BNS}
+    assert lib.vgqa_gemm_sm90_smem_max(1) == sb.GEMM_SMEM_MAX
+    assert lib.vgqa_gemm_sm90_smem_max(2) == sb.GEMM_SMEM_MAX2
+    for f32 in (False, True):
+        for bn in sb.GEMM_BNS:
+            for stages, kps, resident, ksteps in np.ndindex(7, 4, 2, 4):
+                args = (f32, bn, stages + 2, kps + 1, bool(resident), 3 * 4 ** int(ksteps))
+                assert lib.vgqa_gemm_sm90_smem_bytes(*map(int, args)) == \
+                    sb.gemm_smem_bytes(*args)
+        for C, layer, M in _cases():
+            n_mul, k_mul = LAYERS[layer]
+            p = sb.gemm_plan(M, n_mul * C, k_mul * C, f32)
+            assert (p["bn"], p["wn"], p["bps"]) in tiles
+            assert lib.vgqa_gemm_sm90_smem_bytes(int(f32), p["bn"], p["stages"], p["kps"],
+                                                 int(p["resident"]), p["ksteps"]) == p["smem"]
+            assert p["smem"] <= lib.vgqa_gemm_sm90_smem_max(p["bps"])
+
+
+@pytest.mark.cuda
 def test_weight_operands_follow_in_place_updates(cuda):
     """The cached weight operands are keyed on the weight's storage and
     version: an in-place update is read, never the stale copy."""
@@ -671,6 +706,32 @@ def test_swin_block_serving_shapes_cuda(cuda, shape, heads, shift, dtype):
     its plain version (bf16 within 3e-2, float32 within 1e-4 of max |ref|),
     and K1' on the windows of the rolled canvas equal to K1 (max abs diff
     0: the same chain with identity row maps)."""
+    _check_k1_and_k1f(cuda, shape, heads, shift, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,heads", [(128, 4), (256, 8), (512, 16), (1024, 32)])
+def test_swin_block_swin_b_widths_cuda(cuda, C, heads, dtype):
+    """K1 and K1' at Video Swin-B's four widths (the LayerNorm's 4, 8, 16
+    and 32 elements per lane, GEMM plans of widths Swin-T lacks) on a
+    shifted 16 x 14 x 14 canvas, as at the serving shapes."""
+    _check_k1_and_k1f(cuda, (16, 14, 14, C), heads, (4, 3, 3), dtype)
+
+
+@pytest.mark.cuda
+def test_swin_block_rejects_layernorm_width_cuda(cuda):
+    """A width the LayerNorm is not compiled for (C = 32 x 5) raises at the
+    chain's first launch."""
+    rng = np.random.RandomState(0)
+    ws = [torch.from_numpy(w).to(cuda).bfloat16() for w in _block_weights(rng, 160)]
+    canvas = torch.randn(1, 8, 7, 7, 160, device=cuda).bfloat16()
+    bias = torch.zeros(5, 392, 392, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="layernorm"):
+        swin_block_canvas(canvas, *ws, bias, 5, (8, 7, 7), (0, 0, 0))
+
+
+def _check_k1_and_k1f(cuda, shape, heads, shift, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     D, H, W, C = shape
     window, shift = tvs._adjust_window((D, H, W), (8, 7, 7), shift)

@@ -399,6 +399,22 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
+// the tiles the kernel is compiled for: N tile, wgmma width, blocks per SM
+// (the host's plan space, ops/kernels/swin_block.GEMM_BNS / GEMM_WN; the
+// card tests hold it against vgqa_gemm_sm90_tiles)
+struct GTile { int bn, wn, bps; };
+constexpr GTile G_TILES[] = {{32, 32, 2}, {64, 64, 2}, {96, 96, 2},
+                             {32, 32, 1}, {64, 64, 1}, {96, 96, 1},
+                             {128, 64, 1}, {144, 48, 1}, {192, 96, 1}};
+constexpr int G_NTILES = sizeof(G_TILES) / sizeof(G_TILES[0]);
+static_assert(G_NTILES == 9, "launch_gemm's switch names every tile");
+
+int find_tile(int bn, int bps) {
+  for (int i = 0; i < G_NTILES; ++i)
+    if (G_TILES[i].bn == bn && G_TILES[i].bps == bps) return i;
+  return -1;
+}
+
 template <bool F32, int WN, int NSUB, int MINB>
 int launch_bn(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& twl,
               const GemmParams<typename std::conditional<F32, float, bf16>::type>& p, int grid,
@@ -434,7 +450,7 @@ int launch_gemm(const void* A, long long lda, const void* W, const void* W_lo, l
   const int smem = gemm_smem_bytes(F32, bn, stages, kps, resident, ksteps);
   if (M < 1 || bn < 1 || N % bn || K < BKE || K % BKE || kps < 1 || ksteps % kps ||
       lda % ALIGN || ldw % ALIGN || ldo % ALIGN || ldr % ALIGN || stages < 2 ||
-      bps < 1 || bps > 2 || (bps == 2 && bn > 96) ||
+      find_tile(bn, bps) < 0 ||
       smem > (bps == 2 ? G_SMEM_MAX2 : G_SMEM_MAX) || grid < n_tiles || grid % n_tiles ||
       mode < EPI_BIAS || mode > EPI_RES_SCATTER || (mode >= EPI_RES_GATHER && !res) || (F32 && !W_lo) ||
       ((uintptr_t)A | (uintptr_t)W | (uintptr_t)W_lo | (uintptr_t)out | (uintptr_t)res) % 16)
@@ -451,23 +467,16 @@ int launch_gemm(const void* A, long long lda, const void* W, const void* W_lo, l
                         gate_col, rows_per_sample, M, N, mode, ksteps, kps,
                         n_tiles, m_tiles, stages, resident};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (bps == 2) {
-    switch (bn) {
-      case 32: return launch_bn<F32, 32, 1, 2>(ta, tw, twl, p, grid, smem, st);
-      case 64: return launch_bn<F32, 64, 1, 2>(ta, tw, twl, p, grid, smem, st);
-      case 96: return launch_bn<F32, 96, 1, 2>(ta, tw, twl, p, grid, smem, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (bn) {
-    case 32: return launch_bn<F32, 32, 1, 1>(ta, tw, twl, p, grid, smem, st);
-    case 64: return launch_bn<F32, 64, 1, 1>(ta, tw, twl, p, grid, smem, st);
-    case 96: return launch_bn<F32, 96, 1, 1>(ta, tw, twl, p, grid, smem, st);
-    case 128: return launch_bn<F32, 64, 2, 1>(ta, tw, twl, p, grid, smem, st);
-    case 144: return launch_bn<F32, 48, 3, 1>(ta, tw, twl, p, grid, smem, st);
-    case 192: return launch_bn<F32, 96, 2, 1>(ta, tw, twl, p, grid, smem, st);
+#define VGQA_TILE(I)                                                                    \
+  case I:                                                                               \
+    return launch_bn<F32, G_TILES[I].wn, G_TILES[I].bn / G_TILES[I].wn, G_TILES[I].bps>( \
+        ta, tw, twl, p, grid, smem, st)
+  switch (find_tile(bn, bps)) {
+    VGQA_TILE(0); VGQA_TILE(1); VGQA_TILE(2); VGQA_TILE(3); VGQA_TILE(4);
+    VGQA_TILE(5); VGQA_TILE(6); VGQA_TILE(7); VGQA_TILE(8);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef VGQA_TILE
 }
 
 }  // namespace
@@ -499,5 +508,24 @@ int vgqa_gemm_sm90_f32(const void* A, long long lda, const void* W, const void* 
                            rowmap, gates, gate_col, rows_per_sample, bn, stages, kps, resident,
                            bps, grid, stream);
 }
+
+// the host's plan checks: the tiles compiled ({bn, wn, bps} triples into
+// out, at most cap of them; returns how many there are), a plan's shared
+// memory bytes, and the most a block may take at bps blocks per SM
+int vgqa_gemm_sm90_tiles(int* out, int cap) {
+  for (int i = 0; i < G_NTILES && i < cap; ++i) {
+    out[3 * i] = G_TILES[i].bn;
+    out[3 * i + 1] = G_TILES[i].wn;
+    out[3 * i + 2] = G_TILES[i].bps;
+  }
+  return G_NTILES;
+}
+
+int vgqa_gemm_sm90_smem_bytes(int f32, int bn, int stages, int kps, int resident,
+                              int ksteps) {
+  return gemm_smem_bytes(f32 != 0, bn, stages, kps, resident, ksteps);
+}
+
+int vgqa_gemm_sm90_smem_max(int bps) { return bps == 2 ? G_SMEM_MAX2 : G_SMEM_MAX; }
 
 }  // extern "C"

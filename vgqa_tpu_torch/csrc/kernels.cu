@@ -154,10 +154,9 @@ window_attn_f32_kernel(WAParamsT<float> p) {
 // ---------------------------------------------------------------------------
 // Row LayerNorm over bf16 or float rows, one warp per row, two-pass f32
 // statistics. Row m reads source row rowmap[m] (or m), is multiplied by
-// valid[m % n_valid] when given, and is written densely at row m. CPL > 0:
-// C = 32 CPL, and each lane reads its CPL elements (lane + 32 i) once into
-// registers, all loads in flight together; CPL = 0: any C, the row read
-// from memory on each pass. Both sum in the same order.
+// valid[m % n_valid] when given, and is written densely at row m. C = 32
+// CPL (K1's head dim is 32, so C = 32 heads), and each lane reads its CPL
+// elements (lane + 32 i) once into registers, all loads in flight together.
 // ---------------------------------------------------------------------------
 template <typename T, int CPL>
 __global__ void ln_rows_kernel(const T* __restrict__ x, const int* __restrict__ rowmap,
@@ -167,45 +166,28 @@ __global__ void ln_rows_kernel(const T* __restrict__ x, const int* __restrict__ 
   const long long m = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (m >= M) return;
-  const long long src = (rowmap ? (long long)rowmap[m] : m) * C;
-  const T* xr = x + src;
+  const T* xr = x + (rowmap ? (long long)rowmap[m] : m) * C;
   const float vm = valid ? valid[m % n_valid] : 1.f;
   T* orow = out + m * C;
-  if constexpr (CPL > 0) {
-    float v[CPL];
+  float v[CPL];
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) v[i] = to_f(xr[lane + 32 * i]);
-    float s = 0.f;
+  for (int i = 0; i < CPL; ++i) v[i] = to_f(xr[lane + 32 * i]);
+  float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) s += v[i];
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
+  for (int i = 0; i < CPL; ++i) s += v[i];
+  const float mean = warp_sum(s) / C;
+  float q = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const float d = v[i] - mean;
-      q += d * d;
-    }
-    const float r = rsqrtf(warp_sum(q) / C + eps);
+  for (int i = 0; i < CPL; ++i) {
+    const float d = v[i] - mean;
+    q += d * d;
+  }
+  const float r = rsqrtf(warp_sum(q) / C + eps);
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      const float y = (v[i] - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
-      orow[c] = from_f<T>(y * vm);
-    }
-  } else {
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
-    const float mean = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = to_f(xr[c]) - mean;
-      v += d * d;
-    }
-    const float r = rsqrtf(warp_sum(v) / C + eps);
-    for (int c = lane; c < C; c += 32) {
-      const float y = (to_f(xr[c]) - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
-      orow[c] = from_f<T>(y * vm);
-    }
+  for (int i = 0; i < CPL; ++i) {
+    const int c = lane + 32 * i;
+    const float y = (v[i] - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
+    orow[c] = from_f<T>(y * vm);
   }
 }
 
@@ -223,15 +205,20 @@ int launch_ln_rows(const void* x, const int* rowmap, const void* gamma, const vo
 #define VGQA_LN(CPL)                                                                         \
   ln_rows_kernel<T, CPL><<<(unsigned)blocks, threads, 0, st>>>(xt, rowmap, gt, bt, valid,    \
                                                                n_valid, ot, M, C, eps)
-  switch (C % 32 ? 0 : C / 32) {     // K1's widths: C = 96 * 2^s, and the test widths
+  // the heads of Video Swin-T/S (3, 6, 12, 24) and -B (4, 8, 16, 32), and
+  // the card tests' 1 and 2
+  switch (C % 32 ? 0 : C / 32) {
     case 1: VGQA_LN(1); break;
     case 2: VGQA_LN(2); break;
     case 3: VGQA_LN(3); break;
     case 4: VGQA_LN(4); break;
     case 6: VGQA_LN(6); break;
+    case 8: VGQA_LN(8); break;
     case 12: VGQA_LN(12); break;
+    case 16: VGQA_LN(16); break;
     case 24: VGQA_LN(24); break;
-    default: VGQA_LN(0); break;
+    case 32: VGQA_LN(32); break;
+    default: return (int)cudaErrorInvalidValue;
   }
 #undef VGQA_LN
   return (int)cudaGetLastError();

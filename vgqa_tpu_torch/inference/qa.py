@@ -35,17 +35,11 @@ EXPORTED_TREE = "params_torch.pt"      # tools/export_torch_checkpoint.py qa
 
 def load_exported_tree(path: str) -> Dict[str, Any]:
     """The ``{llm, embed, vision}`` tree that ``tools/export_torch_checkpoint.py
-    qa`` wrote, with numpy leaves as ``QAEngine.load_tree`` takes them:
-    floats as float32 (bfloat16 widened exactly), quantized leaves as
-    stored."""
-    tree = torch.load(path, map_location="cpu", weights_only=True)
-
-    def to_numpy(node):
-        if isinstance(node, dict):
-            return {k: to_numpy(v) for k, v in node.items()}
-        return (node.float() if node.is_floating_point() else node).numpy()
-
-    return to_numpy(tree)
+    qa`` wrote, its torch leaves as stored and memory-mapped from the file.
+    ``QAEngine.load_tree`` copies each leaf into its module in the engine's
+    dtype, so the host holds the engine's weights and the file's pages, never
+    a widened copy of the tree."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
 def _load_tiles(video_path, bound, input_size, max_num, num_segments):

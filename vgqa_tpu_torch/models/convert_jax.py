@@ -19,7 +19,11 @@ becomes a ``state_dict`` by one generic walk with a rule per kind of leaf:
   split-half pack), and ``scale`` / ``scale4``, which there are
   quantization scales (f32), not norm weights.
 
-Float leaves become float32; any other leaf raises. A reference checkpoint loads along
+Float leaves become float32, except torch tensors (an exported tree that
+``torch.load`` read), which keep their dtype and are not copied: a
+transposed kernel is a view, and ``load_state_dict`` copies it into the
+module once, so a bf16 tree is never widened on the host. Any other leaf
+raises. A reference checkpoint loads along
 ``vgqa_tpu.models.convert_grounding.convert_grounding_reference`` (numpy,
 in the JAX package) followed by ``state_dict_from_jax``.
 """
@@ -43,20 +47,27 @@ def _convert_quant_leaf(path, value):
     name = path[-1]
     if name not in _QUANT_LEAVES:
         raise KeyError(f"{'/'.join(path)}: no rule maps this leaf of a quantized Dense")
-    arr = np.asarray(value)
-    if arr.dtype != _QUANT_LEAVES[name]:
-        raise TypeError(f"{'/'.join(path)}: {arr.dtype}, expected {_QUANT_LEAVES[name]}")
+    arr = value if isinstance(value, torch.Tensor) else np.asarray(value)
+    dtype = arr.numpy().dtype if isinstance(arr, torch.Tensor) else arr.dtype
+    if dtype != _QUANT_LEAVES[name]:
+        raise TypeError(f"{'/'.join(path)}: {dtype}, expected {_QUANT_LEAVES[name]}")
     return name, arr
 
 
 def _convert_leaf(path, value):
     name = path[-1]
-    arr = np.asarray(value, dtype=np.float32)
+    if isinstance(value, torch.Tensor):
+        if not value.is_floating_point():
+            raise TypeError(f"{'/'.join(path)}: {value.dtype}, expected a float tensor")
+        arr, permute = value, value.permute
+    else:
+        arr = np.asarray(value, dtype=np.float32)
+        permute = arr.transpose
     if name == "kernel":
         if arr.ndim == 2:
-            return "weight", arr.T
+            return "weight", permute(1, 0)
         if arr.ndim == 4:
-            return "weight", arr.transpose(3, 2, 0, 1)
+            return "weight", permute(3, 2, 0, 1)
         raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
     if name in ("scale", "embedding"):
         return "weight", arr
@@ -67,8 +78,8 @@ def _convert_leaf(path, value):
 
 def state_dict_from_jax(params: Mapping,
                         module: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree -> ``state_dict`` (float32 tensors; int8 and f32 as
-    stored inside quantized Dense dicts).
+    """JAX parameter tree -> ``state_dict`` (float32 tensors, torch leaves in
+    their own dtype; int8 and f32 as stored inside quantized Dense dicts).
 
     With ``module`` given, the result must name exactly the module's
     parameters with the same shapes; a missing, extra or misshapen entry
@@ -84,7 +95,8 @@ def state_dict_from_jax(params: Mapping,
                 walk(v, path + (str(k),), quant)
             return
         name, arr = (_convert_quant_leaf if quant else _convert_leaf)(path, node)
-        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[".".join(path[:-1] + (name,))] = (
+            arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr)))
 
     walk(params, ())
     if module is not None:

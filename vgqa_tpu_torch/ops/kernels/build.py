@@ -41,6 +41,9 @@ _SIGNATURES = {
     "vgqa_ln_rows": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _F, _P],
     "vgqa_gemm_sm90": [_P, _L, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I,
                        _P, _L, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P],
+    "vgqa_gemm_sm90_tiles": [_P, _I],
+    "vgqa_gemm_sm90_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    "vgqa_gemm_sm90_smem_max": [_I],
     "vgqa_flash_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _U, _I, _F,
                              _P],
     "vgqa_flash_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

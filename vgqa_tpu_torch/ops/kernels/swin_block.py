@@ -98,6 +98,8 @@ _EPI_BIAS, _EPI_GELU, _EPI_RES_GATHER, _EPI_RES_SCATTER = 0, 1, 2, 3
 # csrc/gemm_sm90.cu's plan space: M tiles of 128 rows, k-steps of 64-byte
 # rows (32 bf16 or 16 float), the N tiles the kernel is compiled for (the
 # widest first) and the wgmma width of each, an H100 block's shared memory
+# (the card tests hold these, and gemm_smem_bytes, against the library's
+# own G_TILES table and formula: vgqa_gemm_sm90_tiles / _smem_bytes / _smem_max)
 GEMM_BM = 128
 GEMM_ROW_BYTES = 64
 GEMM_BNS = (192, 144, 128, 96, 64, 32)
@@ -408,7 +410,7 @@ def _ln_rows(lib, stream, x, rowmap, scale, bias, valid, n_valid, out, M, C):
     build.check(entry(
         x.data_ptr(), build.ptr(rowmap), scale.data_ptr(), bias.data_ptr(),
         build.ptr(valid), n_valid, out.data_ptr(), M, C, LN_EPS, stream),
-        "swin block layernorm")
+        f"swin block layernorm (takes C = 32 x 1, 2, 3, 4, 6, 8, 12, 16, 24 or 32; C = {C})")
 
 
 def _takes_kernel(name: str, x: torch.Tensor, C: int, num_heads: int) -> bool:
