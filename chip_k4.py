@@ -38,10 +38,10 @@ launch counter.
   and two profiled steps: wall, device busy, idle share, kernel launches,
   K1's device ms, and where the device idles: before K1's first kernel,
   inside K1's span and after its last kernel, and how far the device runs
-  past the host's last CUDA call. Timed twice in each run:
-  as ``chip_smoke.py`` runs it, with TF32 off in cuBLAS and cuDNN (every
-  float32 product in f32), then with PyTorch's default in cuDNN (TF32
-  convolutions; matmuls stay f32).
+  past the host's last CUDA call. Timed twice in each run, the flags set
+  for each: ``f32``, TF32 off in cuBLAS and cuDNN (every float32 product in
+  f32: the port's entry points' policy), then ``cudnn_tf32``, PyTorch's
+  default in cuDNN (TF32 convolutions; matmuls stay f32).
 
 ``--sass`` (with ``--other``) compiles both trees' ``csrc/flash_attention.cu``
 and ``csrc/flash_mha_sm90.cu`` and compares K3's forward
@@ -204,7 +204,6 @@ def child_k1(cs, f32: bool) -> dict:
     from vgqa_tpu_torch.ops.kernels.swin_block import (
         swin_block_canvas, swin_block_canvas_reference)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     dtype = torch.float32 if f32 else torch.bfloat16
@@ -218,8 +217,9 @@ def child_k1(cs, f32: bool) -> dict:
                  if f32 else None)
         args = (canvas, *ws, bias, heads, window, shift)
         kw = {"region": region, "valid": valid, "gates": gates}
-        ref = swin_block_canvas_reference(canvas.float(), *[w.float() for w in ws],
-                                          bias.float(), heads, window, shift, **kw)
+        with cs.all_f32():         # the f32 plain version stays f32
+            ref = swin_block_canvas_reference(canvas.float(), *[w.float() for w in ws],
+                                              bias.float(), heads, window, shift, **kw)
         rel = cs.rel_err(swin_block_canvas(*args, **kw), ref)[0]
         del ref
         if not rel < (cs.F32_TOL if f32 else cs.REL_TOL):
@@ -303,8 +303,6 @@ def child_train_f32(cs, tree: str) -> dict:
 
     from vgqa_tpu_torch.config import build_default_cfg
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = build_default_cfg()
     cfg.merge_from_file(os.path.join(tree, "configs", "grounding_vidstg.yaml"))
@@ -318,6 +316,9 @@ def child_train_f32(cs, tree: str) -> dict:
 
     out = {"checked_ms_step": run["ms_step"], "peak_gb": run["peak_gb"]}
     for setting in ("f32", "cudnn_tf32"):
+        # the two labelled settings, set here for either tree (a tree's own
+        # Trainer may set its policy, or none)
+        torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = setting == "cudnn_tf32"
         cs.timed(step, reps=1)                  # a warm-up step at this setting
         timed = [cs.timed(step, reps=1) for _ in range(STEPS)]

@@ -8,7 +8,8 @@
    source, started together) and prints the build seconds; fails when
    ptxas serialises a wgmma for lack of registers (C7511, C7512, C7520).
 3. Checks each kernel against its plain PyTorch version (float32 on the same
-   bf16 inputs) at the shapes its path gives it, with the error relative to
+   bf16 inputs, with TF32 off in cuBLAS and cuDNN around these checks only)
+   at the shapes its path gives it, with the error relative to
    max |ref| (fails above 3e-2) and the times (CUDA events) of the kernel,
    the plain version and, where one PyTorch call computes the same function,
    that call (``library_ms``; the port never calls it):
@@ -67,7 +68,17 @@
    read by the port's merge_from_file: a warm-up and two checked steps
    (K1 x12, K3 6 + 6 per step, frozen leaves unchanged, finite loss), one
    profiled step (K1 / K3 device ms; fails if a bf16 kernel ran or an f32
-   one did not). Then two bf16
+   one did not), and the same step with cuDNN's TF32 convolutions, a measured
+   option beside the entry points' all-f32 policy. Then train_vidstg: the
+   data path of ``python -m vgqa_tpu_torch.tools.train`` / ``.evaluate`` on
+   configs/grounding_vidstg.yaml (float32, 64f@420, 8 loader workers) over
+   a synthetic VidSTG set (4 train and 2 test videos, 640x360, 200 frames;
+   frames from the renderer, the machine has no video decoder): one epoch
+   of 8 synchronised steps (s/step, the loader's wait, the device's idle
+   share over the 2 profiled last steps), ``test`` (do_eval, 4 items x 128
+   frames in two half-passes; s/item), peak memory, K1 / K2 / K3 launches
+   per step and per half-pass exact, then the evaluate tool on
+   ``model_final_params`` (its metric keys are the JAX tool's). Then two bf16
    steps with a trainable tower (MODEL.VIDEO_SWIN.FREEZE False, the module
    route under autograd): ms/step, peak memory, finite loss, the Swin
    parameters changed, and K1 / K1' launched 0 times.
@@ -102,16 +113,26 @@
 8. Prints a JSON line with the kernel table, then, as the last line,
    {"ok": true, "device": {...}}.
 
+The path phases (4-7) run under the port's entry points' precision policy
+(TF32 off in cuBLAS and cuDNN, set by ``load_model`` and the trainer). A
+kernel wrapper never runs its plain version on the card: a shape its kernel
+does not take raises.
+
 Any failure raises (non-zero exit) before the last line is printed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -949,6 +970,21 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in _counted().items()}
 
 
+@contextlib.contextmanager
+def all_f32():
+    """TF32 off in cuBLAS and cuDNN around a kernel-versus-plain check, so
+    the float32 plain versions stay float32; the flags as they were after.
+    The path phases run what the port's entry points set
+    (``utils/device.apply_precision_policy``)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def serve(dev, card):
     from vgqa_tpu_torch.inference.grounding import (
         _group_inputs, _prepare, load_model, predict_many)
@@ -1565,6 +1601,17 @@ def train_f32(dev, card):
           f"{k1_ms:.3f} ms (12 calls), K3 device {k3_fwd:.3f} + {k3_bwd:.3f} ms (6 + 6)  [{card}]")
     for name, us in top[:12]:
         print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
+    # the measured option beside the policy: cuDNN's TF32 convolutions
+    # (PyTorch's default), cuBLAS still f32; then the policy again
+    from vgqa_tpu_torch.utils.device import apply_precision_policy
+
+    torch.backends.cudnn.allow_tf32 = True
+    step_fn(state, *args, seed=0)             # a warm-up step at this setting
+    tf32_ms, _ = timed(lambda: step_fn(state, *args, seed=0), reps=2)
+    apply_precision_policy()
+    print(f"f32 train step 64f@420: {run['ms_step']:.1f} ms/step all-f32 (the entry points' "
+          f"policy: TF32 off in cuBLAS and cuDNN) vs {tf32_ms:.1f} ms/step with cuDNN's TF32 "
+          f"convolutions (a measured option, not the policy; CUDA events, 2 steps)  [{card}]")
     ran = all(any(k in n for n in names) for k in F32_K1_NAMES[1:] + F32_K3_NAMES)
     bf16_ran = [n for n in names if "gemm_sm90_kernel<false" in n or "attn_fwd_kernel<32" in n
                 or "flash_bwd_kernel" in n or K2_NAMES[0] in n]
@@ -1573,7 +1620,216 @@ def train_f32(dev, card):
     del run["trainer"], state
     return {"ms_step": run["ms_step"], "peak_gb": run["peak_gb"], "launches": run["launches"],
             "losses": run["losses"], "k1_device_ms": k1_ms, "k3_device_ms": k3_fwd + k3_bwd,
-            "busy_ms": busy, "wall_ms": wall}
+            "busy_ms": busy, "wall_ms": wall, "cudnn_tf32_ms_step": tf32_ms}
+
+
+# the keys of the metrics dict that tools/evaluate.py prints for a split with
+# both question types: "{qtype}_{name}" (vgqa_tpu/data/metrics/evaluator.py,
+# VidSTGEvaluator.summarize)
+VIDSTG_METRIC_KEYS = {f"{q}_{m}" for q in ("declar", "inter") for m in (
+    "tiou", "viou", "gt_viou", "kf_p", "kf_r", "viou@0.3", "gt_viou@0.3", "viou@0.5",
+    "gt_viou@0.5")}
+VIDSTG_SIZE, VIDSTG_FRAMES = (640, 360), 200     # the synthetic videos: w x h, frames
+
+
+def train_vidstg(dev, card):
+    """Training over the VidSTG data path, as ``python -m
+    vgqa_tpu_torch.tools.train`` then ``.evaluate`` run it, at full width:
+    configs/grounding_vidstg.yaml read by the port's merge_from_file
+    (float32, 64f@420, ResNet-101, Video Swin-T, RoBERTa-base,
+    DATALOADER.NUM_WORKERS 8, random weights from seed 0: MODEL.WEIGHT does
+    not exist here) over a synthetic VidSTG set that the port's
+    ``make_synthetic_dataset`` writes (annotations only: 4 train and 2 test
+    videos of 640x360 and 200 frames; 8 train and 4 test items). The card
+    machine has no video decoder, so the dataset module's ``read_frames``
+    serves the renderer's frames (``synthetic.frame_reader``); from clip
+    sampling on, everything is the port's. One epoch (8 steps as ``fit``
+    runs them, timed over steps 3-8 and 3-6 with a sync only at the windows'
+    ends; steps 7-8 profiled),
+    ``test`` (``do_eval`` on the 4 test items, 128 frames in two 64-frame
+    half-passes), then the evaluate tool on ``model_final_params``. Checks
+    exact K1 / K2 / K3 launches per train step and per eval half-pass, a
+    finite loss, and the evaluate tool's metric keys."""
+    from vgqa_tpu_torch.config import build_default_cfg
+    from vgqa_tpu_torch.data import dataset as dataset_mod
+    from vgqa_tpu_torch.data.synthetic import frame_reader, make_synthetic_dataset
+    from vgqa_tpu_torch.tools import evaluate as evaluate_tool
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml_path = os.path.join(here, "configs", "grounding_vidstg.yaml")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vidstg_", dir=here) as root:
+        data, out = os.path.join(root, "data"), os.path.join(root, "out")
+        make_synthetic_dataset(data, num_videos=4, frames_per_video=VIDSTG_FRAMES,
+                               size=VIDSTG_SIZE, splits=("train",), seed=0, write_videos=False)
+        make_synthetic_dataset(data, num_videos=2, frames_per_video=VIDSTG_FRAMES,
+                               size=VIDSTG_SIZE, splits=("test",), seed=100, write_videos=False)
+        readers = {"train": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=0),
+                   "test": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=100)}
+        for split, n in (("train", 4), ("test", 2)):     # render in set-up, not in the steps
+            for i in range(n):
+                readers[split](f"{split}_vid{i:03d}.mp4", [0])
+        real_read = dataset_mod.read_frames
+        dataset_mod.read_frames = lambda path, ids, *a, **kw: readers[
+            os.path.basename(path).split("_")[0]](path, ids)
+        print("train_vidstg: no video decoder on this machine: the dataset reads the "
+              "synthetic renderer's frames (data/synthetic.frame_reader, uncompressed) "
+              "in place of video_io.read_frames")
+        opts = ["DATA_DIR", data, "OUTPUT_DIR", out, "TENSORBOARD_DIR", ""]
+        try:
+            cfg = build_default_cfg()
+            cfg.merge_from_file(yaml_path)
+            cfg.merge_from_list(opts)
+            cfg.freeze()
+            got = (cfg.TPU.TRAIN_DTYPE, cfg.INPUT.RESOLUTION, cfg.INPUT.TRAIN_SAMPLE_NUM,
+                   cfg.DATALOADER.NUM_WORKERS, cfg.INPUT.MAX_VIDEO_LEN, cfg.TPU.UINT8_FEED)
+            if got != ("float32", 420, 64, 8, 200, True):
+                raise AssertionError(f"configs/grounding_vidstg.yaml read as {got}")
+            res = _vidstg_run(cfg, dev, card, out)
+            # the evaluate tool on the params twin, as `python -m ...tools.evaluate`
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                evaluate_tool.main(["--config-file", yaml_path, *opts, "MODEL.WEIGHT_EVAL",
+                                    os.path.join(out, "model_final_params")])
+            torch.cuda.synchronize()
+            eval_tool_s = time.perf_counter() - t0
+            tool_launches = read_launches()
+        finally:
+            dataset_mod.read_frames = real_read
+    lines = buf.getvalue().splitlines()
+    metrics = json.loads("\n".join(lines[max(i for i, x in enumerate(lines) if x == "{"):]))
+    if "Loaded eval weights" not in buf.getvalue():
+        raise AssertionError("the evaluate tool did not load model_final_params")
+    print(f"evaluate tool on model_final_params: {eval_tool_s:.1f} s for 4 test items "
+          f"(model build included); launches {tool_launches}  [{card}]")
+    print("evaluate tool metrics (random weights): " + json.dumps(metrics))
+    if set(metrics) != VIDSTG_METRIC_KEYS or not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"evaluate tool printed {sorted(metrics)}")
+    want_eval = {"swin_block_canvas": 12 * 8, "swin_block_fused": 0, "window_attention": 6 * 8,
+                 "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0, "flash_mha": 0,
+                 "flash_gqa_causal": 0, "int4_matmul": 0}
+    if tool_launches != want_eval:
+        raise AssertionError(f"evaluate tool: expected 12 K1 / 6 K2 per half-pass, got "
+                             f"{tool_launches}")
+    res["launches"] = {k: res["launches"][k] + tool_launches[k] for k in tool_launches}
+    res.update(eval_tool_s=eval_tool_s, metrics=metrics)
+    return res
+
+
+def _vidstg_run(cfg, dev, card, out):
+    """Setup, one epoch and ``test`` of :func:`train_vidstg`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgqa_tpu_torch.training.trainer import Trainer
+    from vgqa_tpu_torch.utils.log_setup import setup_logger
+
+    logger = setup_logger("Video Grounding", out)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev, seed=0, logger=logger)
+    trainer.setup()
+    print(f"train_vidstg: trainer set up in {time.perf_counter() - t0:.1f} s; max_iter "
+          f"{trainer.max_iter}")
+    if trainer.max_iter != 8:       # 8 train items, batch 1, one epoch
+        raise AssertionError(f"one epoch of 8 train items is {trainer.max_iter} steps")
+
+    step_fn, marks = trainer.step_fn, {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def windowed(state, *args, **kw):
+        """The trainer's step as ``fit`` runs it, but for three
+        synchronisations: before step 3, after step 6 and after step 8 (the
+        ends of the timed windows 3-8 and 3-6); steps 7-8 under the
+        profiler, their window from the sync after step 6."""
+        done = state.step                     # steps taken before this one
+        if done == 2:
+            torch.cuda.synchronize()
+            marks[2] = time.perf_counter()
+        if done == 6:
+            torch.cuda.synchronize()
+            marks[6] = time.perf_counter()
+            prof.__enter__()
+        metrics = step_fn(state, *args, **kw)
+        if done == 7:
+            torch.cuda.synchronize()
+            marks[8] = time.perf_counter()
+            prof.__exit__(None, None, None)
+        return metrics
+
+    windowed.loss_and_grads = step_fn.loss_and_grads     # the step's interface
+    trainer.step_fn = windowed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logged = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    steps = trainer.step_log                  # (step, loader wait s, host step s)
+    wait = [d for _, d, _ in steps]
+    s_step = (marks[8] - marks[2]) / 6
+    s_step_36 = (marks[6] - marks[2]) / 4
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms, wall_ms = busy / 1e3, 1e3 * (marks[8] - marks[6])
+    wait_step = statistics.median(wait[2:8])
+    print(f"train_vidstg fit: 8 steps in {fit_s:.1f} s (2 checkpoints saved at the end); "
+          f"s/step {s_step:.3f} over steps 3-8 (one sync at each end and one after step 6; "
+          f"steps 7-8 profiled), {s_step_36:.3f} over steps 3-6 unprofiled; loader wait "
+          f"{wait_step:.3f} s/step (median of steps 3-8), {sum(wait[2:8]) / (6 * s_step):.3f} "
+          f"of the step time; device idle share {1 - busy_ms / wall_ms:.3f} over steps 7-8 "
+          f"({busy_ms:.1f} ms busy of {wall_ms:.1f} ms, {len(spans)} kernels); peak "
+          f"{train_peak:.2f} GiB  [{card}]")
+    print(f"  per step by the trainer's clock (step, loader wait s, host step s): "
+          f"{[(s, round(d, 3), round(t, 3)) for s, d, t in steps]}")
+    print(f"  logged: {json.dumps(logged[-1])}")
+    print(f"  launches over the 8 steps: {fit_launches}")
+    loss = logged[-1]["loss"]
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    want = {"swin_block_canvas": 12 * 8, "swin_block_fused": 0, "window_attention": 0,
+            "flash_mha_train.fwd": 6 * 8, "flash_mha_train.bwd": 6 * 8, "flash_mha": 0,
+            "flash_gqa_causal": 0, "int4_matmul": 0}
+    if fit_launches != want:
+        raise AssertionError(f"expected 12 K1 / 6 + 6 K3 per train step, got {fit_launches}")
+    for name in ("model_final", "model_final_params"):
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"{name} was not written")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = trainer.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_vidstg test (do_eval, 4 items x 128 frames, 2 half-passes each): "
+          f"{test_s / 4:.3f} s/test item; peak over fit and test {peak:.2f} GiB; launches "
+          f"{test_launches}  [{card}]")
+    want = {"swin_block_canvas": 12 * 8, "swin_block_fused": 0, "window_attention": 6 * 8,
+            "flash_mha_train.fwd": 0, "flash_mha_train.bwd": 0, "flash_mha": 0,
+            "flash_gqa_causal": 0, "int4_matmul": 0}
+    if test_launches != want:
+        raise AssertionError(f"expected 12 K1 / 6 K2 per half-pass, got {test_launches}")
+    if set(results) != VIDSTG_METRIC_KEYS:
+        raise AssertionError(f"test printed {sorted(results)}")
+    del trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"s_step": s_step, "s_step_unprofiled": s_step_36, "loader_wait_s": wait_step,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "eval_s_item": test_s / 4, "peak_gb": peak, "train_peak_gb": train_peak,
+            "launches": {k: fit_launches[k] + test_launches[k] for k in fit_launches},
+            "fit_launches": fit_launches, "test_launches": test_launches}
 
 
 def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
@@ -1773,8 +2029,6 @@ def main() -> int:
     print(card)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}"
           f"  device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions stay f32
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     from vgqa_tpu_torch.ops.kernels import build
@@ -1793,40 +2047,39 @@ def main() -> int:
         raise AssertionError("ptxas serialised wgmma:\n" + "\n".join(serialised))
 
     g = torch.Generator(device=dev).manual_seed(0)
-    k2_rows = check_window_attention(dev, g)
-    k1_rows = check_swin_block(dev, g, K1_SERVE_CASES, batch=2, gated=False)
-    k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
-    k1f_rows = check_swin_fused(dev, g, K1_SERVE_CASES, batch=2)
-    k3_rows = check_flash_train(dev, g)
-    f32_rows = check_f32_kernels(dev, g)
-    k4_rows = check_flash_mha(dev, g)
-    k5_rows = check_flash_gqa(dev, g)
-    k6_rows = check_int4(dev, g)
-    k6_token_ms = int4_token_device_ms(dev, g)
-    k6_host_us = int4_host_us(dev, g)
-    quant_rows = check_quant_bf16(dev, g)
+    with all_f32():       # the kernel-versus-plain checks: f32 plain versions stay f32
+        k2_rows = check_window_attention(dev, g)
+        k1_rows = check_swin_block(dev, g, K1_SERVE_CASES, batch=2, gated=False)
+        k1_train_rows = check_swin_block(dev, g, K1_TRAIN_CASES, batch=1, gated=True)
+        k1f_rows = check_swin_fused(dev, g, K1_SERVE_CASES, batch=2)
+        k3_rows = check_flash_train(dev, g)
+        f32_rows = check_f32_kernels(dev, g)
+        k4_rows = check_flash_mha(dev, g)
+        k5_rows = check_flash_gqa(dev, g)
+        k6_rows = check_int4(dev, g)
+        k6_token_ms = int4_token_device_ms(dev, g)
+        k6_host_us = int4_host_us(dev, g)
+        quant_rows = check_quant_bf16(dev, g)
     torch.cuda.empty_cache()
 
-    serve_launches = serve(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tower = swin_tower_routes(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tr = train(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tr420 = train_420(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tr32 = train_f32(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    tr_swin = train_trainable(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    qa = serve_qa(dev, card)
+    # the path phases, each at full width under the entry points' precision
+    # policy (a wrapper raises for a shape its kernel does not take)
+    def phase(fn):
+        out = fn(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    serve_launches = phase(serve)
+    tower = phase(swin_tower_routes)
+    tr = phase(train)
+    tr420 = phase(train_420)
+    tr32 = phase(train_f32)
+    vidstg = phase(train_vidstg)
+    tr_swin = phase(train_trainable)
+    qa = phase(serve_qa)
     qa_l = qa["launches"]
+    vl = vidstg["launches"]
 
     k1_fwd = sum(r["ms"] * r["per_fwd"] for r in k1_rows)
     k1_plain = sum(r["plain_ms"] * r["per_fwd"] for r in k1_rows)
@@ -1838,7 +2091,8 @@ def main() -> int:
     k3_420 = next(r for r in k3_rows if r["L"] == 418 and r["rate"] == 0.1)
     k3_launches = {d: tr["launches"][f"flash_mha_train.{d}"]
                    + tr420["launches"][f"flash_mha_train.{d}"]
-                   + tr32["launches"][f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
+                   + tr32["launches"][f"flash_mha_train.{d}"]
+                   + vl[f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
     f32_k1, f32_k2 = f32_rows["k1"], f32_rows["k2"]
     f32_k3 = {r["rate"]: r for r in f32_rows["k3"]}
     k4 = k4_rows[0]
@@ -1878,11 +2132,13 @@ def main() -> int:
                    "vgqa_tpu_torch/csrc/kernels.cu (LayerNorm, f32 attention)",
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
          "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"]
-         + tr420["launches"]["swin_block_canvas"] + tr32["launches"]["swin_block_canvas"],
+         + tr420["launches"]["swin_block_canvas"] + tr32["launches"]["swin_block_canvas"]
+         + vl["swin_block_canvas"],
          "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
                               "train": tr["launches"]["swin_block_canvas"],
                               "train_420": tr420["launches"]["swin_block_canvas"],
-                              "train_f32": tr32["launches"]["swin_block_canvas"], "qa": 0},
+                              "train_f32": tr32["launches"]["swin_block_canvas"],
+                              "train_vidstg": vl["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": k1_device, "gemm_device_ms": k1_phase["gemm"],
@@ -1915,9 +2171,11 @@ def main() -> int:
                    "form and K1's bias / region form); vgqa_tpu_torch/csrc/kernels.cu "
                    "(float32)",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
-         "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"],
+         "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"]
+         + vl["window_attention"],
          "launches_by_path": {"serve": serve_launches["window_attention"],
-                              "train": tr["launches"]["window_attention"], "qa": 0},
+                              "train": tr["launches"]["window_attention"],
+                              "train_vidstg": vl["window_attention"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"],
@@ -1940,7 +2198,9 @@ def main() -> int:
                               "train_420": tr420["launches"]["flash_mha_train.fwd"]
                               + tr420["launches"]["flash_mha_train.bwd"],
                               "train_f32": tr32["launches"]["flash_mha_train.fwd"]
-                              + tr32["launches"]["flash_mha_train.bwd"]},
+                              + tr32["launches"]["flash_mha_train.bwd"],
+                              "train_vidstg": vl["flash_mha_train.fwd"]
+                              + vl["flash_mha_train.bwd"]},
          "launches_by_direction": k3_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          "ms": 6 * (k3["fwd_ms"] + k3["bwd_ms"]), "plain_ms": 6 * k3["plain_ms"],
@@ -2000,7 +2260,9 @@ def main() -> int:
           "library_dropout_ms SDPA's at dropout_p 0.1; step_420_device_ms K3's device time "
           "in one profiled 64f@420 step, step_420_bound_ms its bound); launches over "
           "the serving (4 forwards) and training (3 steps at 224 px, 3 at 420 px, 2 f32 "
-          "steps of configs/grounding_vidstg.yaml at 64f@420) runs; each \"f32\" entry: the "
+          "steps of configs/grounding_vidstg.yaml at 64f@420) runs, and train_vidstg (8 f32 "
+          "steps over the data path, its test and the evaluate tool: 16 half-passes); each "
+          "\"f32\" entry: the "
           "float32 form at the f32 step's shapes (K1: the 12 calls of a 64f@420 step, "
           "in_step_device_ms from the profiled f32 step; K2 one call at S=418; K3 per call "
           "at [512, 418, 32], rate 0.1, bounds at the FFMA rate, K1's step_bound_ms with "
@@ -2009,7 +2271,12 @@ def main() -> int:
           "library_device_ms at rate 0.1 by device time); f32 step "
           f"{tr32['ms_step']:.1f} ms, peak {tr32['peak_gb']:.2f} GiB; K4 device_ms / "
           "library_device_ms / exp_floor_ms per chat by the profiler; train "
-          f"step {tr['ms_step']:.1f} ms, peak {tr['peak_gb']:.2f} GiB; at 64f@420 "
+          f"step {tr['ms_step']:.1f} ms, peak {tr['peak_gb']:.2f} GiB; train_vidstg (the data "
+          f"path, f32 64f@420): {vidstg['s_step']:.3f} s/step over steps 3-8 "
+          f"({vidstg['s_step_unprofiled']:.3f} over 3-6 unprofiled), loader wait "
+          f"{vidstg['loader_wait_s']:.3f} s/step, idle share {vidstg['idle_share']:.3f}, eval "
+          f"{vidstg['eval_s_item']:.3f} s/test item, peak {vidstg['peak_gb']:.2f} GiB, "
+          f"launches over 8 steps + test + the evaluate tool; at 64f@420 "
           f"{tr420['ms_step']:.1f} ms, peak {tr420['peak_gb']:.2f} GiB, K3 device "
           f"{tr420['k3_device_ms']:.3f} ms per step; K1' launches over the tower's blocks "
           "route; Swin-T "

@@ -721,14 +721,24 @@ def test_swin_block_swin_b_widths_cuda(cuda, C, heads, dtype):
 
 @pytest.mark.cuda
 def test_swin_block_rejects_layernorm_width_cuda(cuda):
-    """A width the LayerNorm is not compiled for (C = 32 x 5) raises at the
-    chain's first launch."""
+    """A width the LayerNorm is not compiled for (C = 32 x 5) raises before
+    the chain's first launch; the LayerNorm kernel itself also raises for
+    it."""
+    from vgqa_tpu_torch.ops.kernels import build
+    from vgqa_tpu_torch.ops.kernels import swin_block as sb
+
     rng = np.random.RandomState(0)
     ws = [torch.from_numpy(w).to(cuda).bfloat16() for w in _block_weights(rng, 160)]
     canvas = torch.randn(1, 8, 7, 7, 160, device=cuda).bfloat16()
     bias = torch.zeros(5, 392, 392, device=cuda).bfloat16()
-    with pytest.raises(RuntimeError, match="layernorm"):
+    before = swin_block_canvas.launches
+    with pytest.raises(ValueError, match="layernorm"):
         swin_block_canvas(canvas, *ws, bias, 5, (8, 7, 7), (0, 0, 0))
+    assert swin_block_canvas.launches == before
+    x = canvas.reshape(-1, 160)
+    with pytest.raises(RuntimeError, match="layernorm"):
+        sb._ln_rows(build.load_library(), build.stream_handle(cuda), x, None, ws[0], ws[1],
+                    None, 1, torch.empty_like(x), x.shape[0], 160)
 
 
 def _check_k1_and_k1f(cuda, shape, heads, shift, dtype):
@@ -762,3 +772,158 @@ def _check_k1_and_k1f(cuda, shape, heads, shift, dtype):
                              region=region, valid=valid)
     torch.cuda.synchronize()
     assert (tvs.window_reverse(fused, window, 2, *dims_p).float() - k1.float()).abs().max() == 0
+
+
+# ---- head dims below the kernels' (padded per head); what padding cannot reach raises ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_small_head_dims_cuda(cuda, dh, dtype):
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    H, S = 4, 130
+    q, k, v = (torch.randn(16, S, H * dh, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    kv = (torch.rand(16, S, generator=g, device=cuda) > 0.2).float()
+    kv[:, 0] = 1.0
+    before = window_attention.launches
+    out = window_attention(q, k, v, key_valid=kv, num_heads=H)
+    ref = window_attention_reference(q.float(), k.float(), v.float(), key_valid=kv,
+                                      num_heads=H)
+    assert window_attention.launches == before + 1
+    assert _rel_err(out, ref) < (1e-4 if dtype == torch.float32 else CUDA_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_mha_train_small_head_dims_cuda(cuda, dh, dtype):
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    H, L = 4, 124
+    q, k, v = (torch.randn(8, L, H * dh, generator=g, device=cuda).to(dtype).requires_grad_()
+               for _ in range(3))
+    mask = torch.ones(8, L, dtype=torch.bool, device=cuda)
+    mask[1, 100:] = False
+    do = torch.randn(8, L, H * dh, generator=g, device=cuda).to(dtype)
+    before = (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches)
+    out = flash_mha_train(q, k, v, H, key_mask=mask, dropout_rate=0.1, seed=5)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_mha_train.fwd_launches, flash_mha_train.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    # the plain version on the CPU draws the same keep mask (folded row, query, key)
+    qc, kc, vc = (t.detach().float().cpu().requires_grad_() for t in (q, k, v))
+    ref = flash_mha_train(qc, kc, vc, H, key_mask=mask.cpu(), dropout_rate=0.1, seed=5)
+    ref_grads = torch.autograd.grad(ref, (qc, kc, vc), do.float().cpu())
+    tol = 1e-4 if dtype == torch.float32 else CUDA_REL
+    assert _rel_err(out.cpu(), ref) < tol
+    for a, b in zip(grads, ref_grads):
+        assert _rel_err(a.cpu(), b) < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 16])
+def test_flash_mha_small_head_dims_cuda(cuda, dh):
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    H = 4
+    q, k, v = (torch.randn(8, 65, H * dh, generator=g, device=cuda).bfloat16() for _ in range(3))
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, H)
+    assert flash_mha.launches == before + 1
+    assert _rel_err(out, flash_mha_reference(q.float(), k.float(), v.float(), H)) < CUDA_REL
+    with pytest.raises(TypeError, match="bfloat16"):           # K4 takes bf16 only
+        flash_mha(q.float(), k.float(), v.float(), H)
+    assert flash_mha.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_gqa_small_head_dim_cuda(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(8, 40, 16, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 96, 16, generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = flash_gqa_causal.launches
+    out = flash_gqa_causal(q, k, v, 30, 60)
+    assert flash_gqa_causal.launches == before + 1
+    ref = flash_gqa_causal_reference(q.float(), k.float(), v.float(), 30, 60)
+    assert _rel_err(out, ref) < CUDA_REL
+
+
+def _tiny_grounding_cfg(**opts):
+    import os
+
+    from vgqa_tpu_torch.config import build_default_cfg
+
+    cfg = build_default_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "grounding_vidstg_tiny.yaml"))
+    cfg.OUTPUT_DIR = ""
+    cfg.merge_from_list([x for kv in opts.items() for x in kv])
+    cfg.freeze()
+    return cfg
+
+
+@pytest.mark.cuda
+def test_tiny_grounding_serves_with_kernel_routes_cuda(cuda):
+    """configs/grounding_vidstg_tiny.yaml on the card: the encoder's heads of
+    8 run K2 padded. The tiny Swin's first stages (C 8, 16) are not widths
+    of K1's chain: with its route on the forward raises before a launch, so
+    the Swin tower runs its plain route (``vid.use_kernels`` False)."""
+    from vgqa_tpu_torch.inference.grounding import load_model, predict_many
+
+    loaded = load_model(_tiny_grounding_cfg(), device=cuda)
+    frames = np.random.RandomState(0).randint(0, 256, (16, 64, 64, 3), np.uint8)
+    request = {"frames": frames, "fps": 8.0, "ori_size": (48, 80), "query": "a red ball"}
+    before = (swin_block_canvas.launches, window_attention.launches)
+    with pytest.raises(ValueError, match="layernorm"):
+        predict_many([request], loaded=loaded)
+    assert swin_block_canvas.launches == before[0]
+    loaded.model.vid.use_kernels = False
+    before = (swin_block_canvas.launches, window_attention.launches)
+    out = predict_many([request], loaded=loaded)[0]
+    assert len(out["tube"]) == 16
+    assert (swin_block_canvas.launches - before[0], window_attention.launches - before[1]) == (0, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_grounding_trains_with_kernel_routes_cuda(cuda, dtype):
+    """The tiny config trains on the card with K3 on its heads of 8
+    (padded); the Swin tower takes its plain route, as when serving."""
+    from vgqa_tpu_torch.data.synthetic_batch import synthetic_batch
+    from vgqa_tpu_torch.training.trainer import Trainer
+
+    cfg = _tiny_grounding_cfg(**{"TPU.TRAIN_DTYPE": dtype})
+    trainer = Trainer(cfg, device=cuda, seed=0)
+    trainer.setup(max_iter=10)
+    trainer.state.model.vid.use_kernels = False
+    before = (swin_block_canvas.launches, flash_mha_train.fwd_launches,
+              flash_mha_train.bwd_launches)
+    logged = trainer.fit([synthetic_batch(cfg)], steps=2)
+    assert all(np.isfinite(x["loss"]) for x in logged)
+    assert (swin_block_canvas.launches - before[0], flash_mha_train.fwd_launches - before[1],
+            flash_mha_train.bwd_launches - before[2]) == (0, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_qa_chats_with_kernel_routes_cuda(cuda, dtype):
+    """QA ``__tiny__`` (ViT heads of 8, LLM heads of 16): in bf16 K4 and K5
+    run, padded; K4 and K5 take bf16 only, so the float32 engine raises
+    with its kernel routes on and chats with them off."""
+    from vgqa_tpu_torch.qa import LLMConfig, QAEngine, ViTConfig
+    from vgqa_tpu_torch.qa.engine import GenerationConfig
+
+    eng = QAEngine.init_random(LLMConfig.tiny(), ViTConfig.tiny(), device=cuda, dtype=dtype)
+    tiles = np.random.RandomState(1).randint(0, 256, (2, 32, 32, 3), np.uint8)
+    gen = GenerationConfig(max_new_tokens=6, temperature=0.0, do_sample=False)
+    before = (flash_mha.launches, flash_gqa_causal.launches)
+    if dtype == torch.float32:
+        with pytest.raises(TypeError, match="bfloat16"):
+            eng.chat(tiles, "what is it?", gen)
+        eng.use_kernels = False
+    answer = eng.chat(tiles, "what is it?", gen)
+    assert isinstance(answer, str)
+    ran = (flash_mha.launches - before[0], flash_gqa_causal.launches - before[1])
+    if dtype == torch.float32:
+        assert ran == (0, 0)
+    else:
+        assert ran[0] > 0 and ran[1] > 0

@@ -267,6 +267,7 @@ def test_checkpoint_resume_matches_uninterrupted_run(tmp_path):
     full = run(tmp_path / "a", 2)
     run(tmp_path / "b", 1)
     assert (tmp_path / "b" / "last_checkpoint").read_text().endswith("model_final")
+    assert (tmp_path / "b" / "model_final_params").exists()
     resumed = run(tmp_path / "b", 1)          # resumes at step 1, takes step 2
     assert resumed.step == full.step == 2
     for (n, p), (_, q) in zip(full.model.named_parameters(),

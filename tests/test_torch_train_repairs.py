@@ -1,6 +1,6 @@
 """Guards of the port's boundaries: no module of ``vgqa_tpu_torch`` (nor
 ``chip_smoke.py``, ``chip_k6.py`` or ``chip_k4.py``) imports the JAX stack or anything of
-``vgqa_tpu``; the entry points run on the card unless the caller asks for the CPU; and the
+``vgqa_tpu``, or OpenCV / PyYAML at module level; the entry points run on the card unless the caller asks for the CPU; and the
 port's copy of the tokenizer gives vgqa_tpu's ids."""
 
 import ast
@@ -45,6 +45,35 @@ def test_port_imports_nothing_of_jax_or_vgqa_tpu():
             if name.split(".")[0] in FORBIDDEN:
                 bad.append(f"{os.path.relpath(path, REPO)}: import {name}")
     assert n_files > 30
+    assert not bad, bad
+
+
+# the data path, the evaluation and the tools: walked like every other module
+WALKED = ("data/words.py", "data/annotations.py", "data/clip_sampling.py",
+          "data/transforms.py", "data/synthetic.py", "data/dataset.py", "data/loader.py",
+          "data/metrics/evaluator.py", "training/evaluator.py", "training/trainer.py",
+          "utils/metrics_logger.py", "utils/log_setup.py", "utils/tensorboard.py",
+          "tools/train.py", "tools/evaluate.py", "ops/kernels/padding.py")
+
+
+def test_port_imports_cv2_and_yaml_only_inside_functions():
+    """No module of the port imports OpenCV or PyYAML at module level (the
+    card machine has neither): only inside the functions that read or write
+    video or YAML files."""
+    walked = {os.path.relpath(p, os.path.join(REPO, "vgqa_tpu_torch")) for p in _port_sources()}
+    assert set(WALKED) <= walked, set(WALKED) - walked
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        for node in (n for stmt in tree.body if isinstance(stmt, (ast.If, ast.Try))
+                     for n in ast.walk(stmt)):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                top.append(node)
+        for name in _imported(ast.Module(body=top, type_ignores=[])):
+            if name.split(".")[0] in ("cv2", "yaml"):
+                bad.append(f"{os.path.relpath(path, REPO)}: import {name}")
     assert not bad, bad
 
 

@@ -1,2 +1,3 @@
-"""Host-side data: tokenizer, video decode, batch collation (counterpart of
-``vgqa_tpu.data``)."""
+"""Host-side data (counterpart of ``vgqa_tpu.data``): tokenizer, video
+decode, VidSTG annotations, clip sampling, transforms, the dataset, the
+loader, batch collation, the synthetic dataset and the VidSTG metrics."""

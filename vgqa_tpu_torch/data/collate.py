@@ -3,7 +3,7 @@
 Samples are packed onto fixed ``[V, T_pad, res, res, 3]`` canvases with
 explicit masks, and targets become dense per-frame tensors: the ground-truth
 boxes are scattered onto their span. Everything is built in numpy and
-returned as CPU torch tensors; the trainer moves the batch to its device.
+returned as CPU torch tensors; :func:`batch_to` moves a batch to its device.
 """
 
 from __future__ import annotations
@@ -93,4 +93,18 @@ def collate(
             "verb_labels": torch.from_numpy(verb),
         },
         "info": info,
+    }
+
+
+def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Move a collated batch's tensors to ``device`` (without blocking on
+    the card: pinned host tensors upload asynchronously)."""
+    v, t = batch["video"], batch["text"]
+    nb = device.type == "cuda"
+    return {
+        "video": VideoBatch(*(x.to(device, non_blocking=nb)
+                              for x in (v.frames, v.pixel_mask, v.time_mask))),
+        "text": TextBatch(t.token_ids.to(device, non_blocking=nb),
+                          t.mask.to(device, non_blocking=nb)),
+        "targets": {k: x.to(device, non_blocking=nb) for k, x in batch["targets"].items()},
     }

@@ -44,7 +44,7 @@ from ..training.evaluator import (
     make_eval_forward,
 )
 from ..utils.containers import TextBatch, VideoBatch
-from ..utils.device import resolve_device
+from ..utils.device import apply_precision_policy, resolve_device
 
 DEFAULT_CONFIG_PATH = "configs/grounding_vidstg.yaml"
 DEFAULT_CHECKPOINT_PATH = "checkpoints/grounding/vidstg.pt"
@@ -77,9 +77,12 @@ def load_model(cfg, ckpt_path: str = "", device=None, seed: int = 0,
     initialization (``torch.Generator`` seeded with ``seed``). A JAX
     checkpoint (an orbax directory) raises ``ValueError``: export it first
     with ``tools/export_torch_checkpoint.py grounding``. The model is
-    cast to ``cfg.TPU.COMPUTE_DTYPE`` (the serving precision). ``device``
-    defaults to the card; without one it raises (pass ``device="cpu"``)."""
+    cast to ``cfg.TPU.COMPUTE_DTYPE`` (the serving precision), under the
+    port's float32 policy (``utils/device.apply_precision_policy``: TF32 off
+    in cuBLAS and cuDNN). ``device`` defaults to the card; without one it
+    raises (pass ``device="cpu"``)."""
     device = resolve_device(device)
+    apply_precision_policy()
     model = VSTGNet(GroundingConfig.from_cfg(cfg))
     init_weights(model, torch.Generator().manual_seed(seed))
     if state_dict is None and ckpt_path:

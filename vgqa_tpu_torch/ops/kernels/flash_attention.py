@@ -59,8 +59,12 @@ block size; the port's does not. The InternViT never masks.
 
 Both wrappers launch the kernel for CUDA tensors (bf16; head dim 64 for K4,
 128 for K5, the dims of the QA path) and run the plain version for CPU
-tensors; anything else raises. ``python3 chip_k4.py --kernel k5 --other
-DIR`` times K5 (``--kernel k4``: K4) against another checkout on one card.
+tensors; another device raises. A smaller head dim is zero-padded per head
+up to the kernel's (``padding``) with the scale of the true head dim, and
+the output sliced back, as the Pallas kernels pad to 128. A larger head
+dim, a dtype other than bf16 (the float32 engine of ``__tiny__``), or a K5
+group that is not a power of two up to 64 raises on the card. ``python3
+chip_k4.py --kernel k5 --other DIR`` times K5 (``--kernel k4``: K4) against another checkout on one card.
 ``flash_mha.launches`` / ``flash_gqa_causal.launches`` count the launches.
 """
 
@@ -71,6 +75,7 @@ from typing import Optional, Union
 import torch
 
 from . import build
+from .padding import pad_heads, pad_last, unpad_heads
 
 NEG_INF = -1e30
 K4_HEAD_DIM = 64           # InternViT
@@ -163,19 +168,23 @@ def flash_mha(
     if dim % num_heads:
         raise ValueError(f"{dim} channels do not split into {num_heads} heads")
     dh = dim // num_heads
-    if _device_of(q, "flash_mha") == "cpu":
-        return flash_mha_reference(q, k, v, num_heads, key_mask, scale)
-    q3, k3, v3, out, mask = flash_mha_operands(q, k, v, num_heads, key_mask)
-    B = q3.shape[0]
     if scale is None:
         scale = dh ** -0.5
+    if _device_of(q, "flash_mha") == "cpu":
+        return flash_mha_reference(q, k, v, num_heads, key_mask, scale)
+    if dh > K4_HEAD_DIM:
+        raise ValueError(f"flash_mha kernel takes head dims up to {K4_HEAD_DIM} (padded), "
+                         f"not {dh}")
+    q, k, v = (pad_heads(t, num_heads, K4_HEAD_DIM) for t in (q, k, v))
+    q3, k3, v3, out, mask = flash_mha_operands(q, k, v, num_heads, key_mask)
+    B, dp = q3.shape[0], K4_HEAD_DIM
     build.check(build.load_library().vgqa_flash_mha(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), build.ptr(mask),
-        B, Lq, Lk, num_heads, dh, q3.stride(0), q3.stride(1), k3.stride(0), k3.stride(1),
+        B, Lq, Lk, num_heads, dp, q3.stride(0), q3.stride(1), k3.stride(0), k3.stride(1),
         v3.stride(0), v3.stride(1), out.stride(0), out.stride(1), float(scale),
         build.stream_handle(q.device)), "flash_mha")
     flash_mha.launches += 1
-    return out.reshape(*lead, Lq, dim)
+    return unpad_heads(out.reshape(*lead, Lq, num_heads * dp), num_heads, dh)
 
 
 flash_mha.launches = 0
@@ -220,10 +229,13 @@ def flash_gqa_causal(
     Hkv, S, _ = k.shape
     if H % Hkv:
         raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
+    if scale is None:
+        scale = dh ** -0.5
     if _device_of(q, "flash_gqa_causal") == "cpu":
         return flash_gqa_causal_reference(q, k, v, q_offset, length, scale)
-    if dh != K5_HEAD_DIM:
-        raise ValueError(f"flash_gqa_causal kernel takes head dim {K5_HEAD_DIM}, not {dh}")
+    if dh > K5_HEAD_DIM:
+        raise ValueError(f"flash_gqa_causal kernel takes head dims up to {K5_HEAD_DIM} "
+                         f"(padded), not {dh}")
     group = H // Hkv
     if group > 64 or group & (group - 1):
         raise ValueError(f"flash_gqa_causal kernel takes a group of 1, 2, 4, .., 64 query "
@@ -232,18 +244,18 @@ def flash_gqa_causal(
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 0 <= int(q_offset):
         raise ValueError(f"q_offset {q_offset} < 0")
-    if scale is None:
-        scale = dh ** -0.5
-    out = torch.empty((Lq, H, dh), dtype=q.dtype, device=q.device).transpose(0, 1)
+    q, k, v = (pad_last(t, K5_HEAD_DIM) for t in (q, k, v))
+    dp = K5_HEAD_DIM
+    out = torch.empty((Lq, H, dp), dtype=q.dtype, device=q.device).transpose(0, 1)
     _check_rows("flash_gqa_causal", q, k, v, out)
     length = torch.as_tensor(length, device=q.device).to(torch.int32).reshape(1)
     build.check(build.load_library().vgqa_flash_gqa_causal(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), length.data_ptr(),
-        H, Hkv, Lq, S, dh, int(q_offset), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        H, Hkv, Lq, S, dp, int(q_offset), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale),
         build.stream_handle(q.device)), "flash_gqa_causal")
     flash_gqa_causal.launches += 1
-    return out
+    return out if dh == dp else out[..., :dh]
 
 
 flash_gqa_causal.launches = 0

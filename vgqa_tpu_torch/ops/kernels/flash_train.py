@@ -57,7 +57,12 @@ The f32 backward is one launch whose blocks own either a key (dk, dv) or a
 query (dq) of a folded row: no atomics, one writer per output element.
 
 ``flash_mha_train`` launches the kernels for CUDA tensors (bf16 or f32)
-and runs the plain version for CPU tensors; anything else raises.
+and runs the plain version for CPU tensors; anything else raises. A head
+dim below 32 is zero-padded per head to 32 (``padding.pad_heads``, under
+autograd) with the scale of the true head dim, and the output sliced back,
+as the Pallas kernels pad to 128; the keep mask depends on the folded row
+and the (query, key) position only, so padding draws the same one. A head
+dim above 32 raises on the card.
 ``flash_mha_train.fwd_launches`` / ``.bwd_launches`` count the launches.
 """
 
@@ -71,6 +76,7 @@ import torch
 
 from . import build
 from .dtypes import check_kernel_dtype
+from .padding import pad_heads, unpad_heads
 
 NEG_INF = -1e30
 MAX_SEQ_PAD = 1024       # the Pallas kernel's full-S block limit
@@ -365,10 +371,15 @@ def flash_mha_train(
     mask = None
     if key_mask is not None:
         mask = key_mask.to(torch.bool).expand(*lead, Lk).reshape(W, Lk)
-    out = _FlashTrain.apply(q.reshape(W, Lq, dim), k.reshape(W, Lk, dim),
-                            v.reshape(W, Lk, dim), mask, int(seed), float(dropout_rate),
-                            float(scale), num_heads)
-    return out.reshape(*lead, Lq, dim)
+    q, k, v = q.reshape(W, Lq, dim), k.reshape(W, Lk, dim), v.reshape(W, Lk, dim)
+    if _device_of(q) == "cuda":
+        if dh > HEAD_DIM:
+            raise ValueError(f"flash_mha_train kernel takes head dims up to {HEAD_DIM} "
+                             f"(padded), not {dh}")
+        q, k, v = (pad_heads(t, num_heads, HEAD_DIM) for t in (q, k, v))
+    out = _FlashTrain.apply(q, k, v, mask, int(seed), float(dropout_rate), float(scale),
+                            num_heads)
+    return unpad_heads(out, num_heads, dh).reshape(*lead, Lq, dim)
 
 
 flash_mha_train.fwd_launches = 0

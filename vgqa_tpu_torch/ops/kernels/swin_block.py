@@ -74,8 +74,14 @@ W's split is cached per weight, keyed on its storage and version) and
 ``window_attn_f32_kernel`` (FFMA, bound by the 67 TFLOP/s FFMA rate).
 
 ``swin_block_canvas`` / ``swin_block_fused`` launch the chain for CUDA
-tensors (bf16 or f32, head dim 32) and run ``swin_block_canvas_reference``
-/ ``swin_block_fused_reference`` for CPU tensors; anything else raises.
+tensors (bf16 or f32) and run ``swin_block_canvas_reference`` /
+``swin_block_fused_reference`` for CPU tensors; another device raises. The
+chain takes a width C that its LayerNorm is compiled for (C = 32 x
+``LN_WIDTHS``) in heads of up to 32 channels: a smaller head dim is
+zero-padded per head between the qkv GEMM and the attention and sliced back
+after it, with the scale of the true head dim. Any other block (the tiny
+test Swin's first two stages, C = 8 and 16) raises on the card before a
+launch.
 """
 
 from __future__ import annotations
@@ -91,8 +97,10 @@ import torch.nn.functional as F
 from . import build
 from . import window_attention as wa
 from .dtypes import check_kernel_dtype
+from .padding import pad_last, unpad_heads
 
 LN_EPS = 1e-5
+LN_WIDTHS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)   # ln_rows_kernel's C / 32
 _EPI_BIAS, _EPI_GELU, _EPI_RES_GATHER, _EPI_RES_SCATTER = 0, 1, 2, 3
 
 # csrc/gemm_sm90.cu's plan space: M tiles of 128 rows, k-steps of 64-byte
@@ -413,16 +421,26 @@ def _ln_rows(lib, stream, x, rowmap, scale, bias, valid, n_valid, out, M, C):
         f"swin block layernorm (takes C = 32 x 1, 2, 3, 4, 6, 8, 12, 16, 24 or 32; C = {C})")
 
 
+def chain_takes(C: int, num_heads: int) -> bool:
+    """Whether the chain takes a block of width C in ``num_heads`` heads: C
+    a LayerNorm width of ``ln_rows_kernel`` and a head dim of at most 32
+    (padded to 32)."""
+    return (C % 32 == 0 and C // 32 in LN_WIDTHS and C % num_heads == 0
+            and C // num_heads <= wa.HEAD_DIM)
+
+
 def _takes_kernel(name: str, x: torch.Tensor, C: int, num_heads: int) -> bool:
-    """True for a CUDA tensor the kernel takes, False for a CPU tensor (the
-    plain version); raises for anything else."""
+    """True for a CUDA tensor the chain takes, False for a CPU tensor (the
+    plain version); raises for anything else, before any launch."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise RuntimeError(f"{name} runs on cpu or cuda, not {x.device}")
     check_kernel_dtype(f"{name} kernel", x.dtype)
-    if C // num_heads != wa.HEAD_DIM or C % num_heads:
-        raise ValueError(f"{name} kernel takes head dim {wa.HEAD_DIM}")
+    if not chain_takes(C, num_heads):
+        raise ValueError(
+            f"{name} kernel takes C = 32 x {', '.join(map(str, LN_WIDTHS))} (its layernorm "
+            f"widths) in heads of up to {wa.HEAD_DIM} channels, not C = {C} in {num_heads}")
     return True
 
 
@@ -442,7 +460,8 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
     def vec(t):
         return t.to(device=dev, dtype=dt).contiguous()
 
-    scale = wa.HEAD_DIM ** -0.5
+    dh = C // num_heads
+    scale = dh ** -0.5
     bq = torch.cat([(bqkv[:C].float() * scale).to(bqkv.dtype), bqkv[C:]])
     n_valid = 1
     if valid is not None:
@@ -458,10 +477,13 @@ def _launch_chain(src, out, W, N, weights, bias, num_heads, region, valid,
              h, M, C)
     qkv = torch.empty((M, 3 * C), dtype=dt, device=dev)
     _gemm(lib, st, h, _weight_operands(wqkv, dev, dt, scale), vec(bq), qkv, 3 * C, _EPI_BIAS)
-    attn = torch.empty((M, C), dtype=dt, device=dev)
-    q3 = qkv.view(W, N, 3 * C)
-    wa.launch(q3[..., :C], q3[..., C:2 * C], q3[..., 2 * C:],
-              attn.view(W, N, C), num_heads, 1.0, bias=vec(bias), region=region)
+    # heads below 32 channels: pad q, k and v per head for the attention
+    Cp = num_heads * wa.HEAD_DIM
+    q3 = pad_last(qkv.view(M, 3 * num_heads, dh), wa.HEAD_DIM).view(W, N, 3 * Cp)
+    attn = torch.empty((M, Cp), dtype=dt, device=dev)
+    wa.launch(q3[..., :Cp], q3[..., Cp:2 * Cp], q3[..., 2 * Cp:],
+              attn.view(W, N, Cp), num_heads, 1.0, bias=vec(bias), region=region)
+    attn = unpad_heads(attn, num_heads, dh)
     x1 = torch.empty((M, C), dtype=dt, device=dev)
     _gemm(lib, st, attn, _weight_operands(wproj, dev, dt), vec(bproj), x1, C, _EPI_RES_GATHER,
           res=src, ldr=C, rowmap=read_map, gates=gates, gate_col=0,

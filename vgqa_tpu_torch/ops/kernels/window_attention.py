@@ -39,7 +39,10 @@ the same online softmax. Bound there by the FFMA rate (67 TFLOP/s on an
 H100 SXM against 989 for bf16 on the tensor cores).
 
 ``window_attention`` launches the kernel for CUDA tensors and runs
-``window_attention_reference`` for CPU tensors; anything else raises.
+``window_attention_reference`` for CPU tensors; anything else raises. A head
+dim below 32 is zero-padded per head to 32 (``padding.pad_heads``) and the
+output sliced back, as the Pallas kernel pads to 128; a head dim above 32
+or more than ``MAX_TOKENS`` tokens raises on the card.
 ``python3 chip_k4.py --kernel k2 --other DIR`` times the encoder form
 against another checkout (and SDPA) on one card.
 """
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 
 from . import build
 from .dtypes import check_kernel_dtype
+from .padding import pad_heads, unpad_heads
 
 NEG_INF = -1e30
 HEAD_DIM = 32          # the kernel's head dim (every caller on the path)
@@ -101,6 +105,12 @@ def window_attention_reference(
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p, heads(v))
     return o.transpose(1, 2).reshape(W, N, C).to(q.dtype)
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"window_attention runs on cpu or cuda, not {q.device}")
+    return q.device.type
 
 
 def launch(q, k, v, out, num_heads: int, scale: float, bias=None,
@@ -174,20 +184,20 @@ def window_attention(
     W, N, C = q.shape
     if C % num_heads:
         raise ValueError(f"{C} channels do not split into {num_heads} heads")
-    if q.device.type == "cpu":
+    dh = C // num_heads
+    if scale is None:
+        scale = dh ** -0.5
+    if _device_of(q) == "cpu":
         return window_attention_reference(q, k, v, bias, region, key_valid,
                                           num_heads, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"window_attention runs on cpu or cuda, not {q.device}")
-    if C // num_heads != HEAD_DIM:
-        raise ValueError(f"window_attention kernel takes head dim {HEAD_DIM}, "
-                         f"not {C // num_heads}")
-    if scale is None:
-        scale = HEAD_DIM ** -0.5
-    out = torch.empty((W, N, C), dtype=q.dtype, device=q.device)
+    if dh > HEAD_DIM:
+        raise ValueError(f"window_attention kernel takes head dims up to {HEAD_DIM} "
+                         f"(padded), not {dh}")
+    q, k, v = (pad_heads(t, num_heads, HEAD_DIM) for t in (q, k, v))
+    out = torch.empty((W, N, num_heads * HEAD_DIM), dtype=q.dtype, device=q.device)
     launch(q, k, v, out, num_heads, scale, bias, region, key_valid)
     window_attention.launches += 1
-    return out
+    return unpad_heads(out, num_heads, dh)
 
 
 window_attention.launches = 0

@@ -2,7 +2,10 @@
 ``vgqa_tpu/training/checkpoint.py``): ``torch.save`` of the step, the f32
 master parameters, the optimizer moments and the EMA under
 ``OUTPUT_DIR/<name>``, with the JAX package's ``last_checkpoint`` tag file
-naming the newest resumable checkpoint, and resume from it.
+naming the newest resumable checkpoint, and resume from it; and the
+params-only twins (``<name>_params``): a model state dict that
+``inference/grounding.load_model`` and ``tools/evaluate`` load, written
+without moving the tag.
 """
 
 from __future__ import annotations
@@ -44,6 +47,15 @@ class CheckpointManager:
         os.replace(f"{path}.tmp", path)
         with open(self._tag_path, "w") as f:
             f.write(path)
+        return path
+
+    def save_params(self, name: str, state_dict) -> str:
+        """Save a model state dict as ``name``; the tag file stays where it is
+        (a params twin is not a resumable checkpoint)."""
+        path = os.path.join(self.output_dir, name)
+        logger.info(f"Saving parameters to {path}")
+        torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, f"{path}.tmp")
+        os.replace(f"{path}.tmp", path)
         return path
 
     def load(self, state: TrainState, path: str = "") -> bool:

@@ -1,27 +1,20 @@
-"""Serving half of the evaluation loop (counterpart of
-``vgqa_tpu/training/evaluator.py``): the forward + postprocess of one
-half-clip pass, and the host-side merge of even/odd halves (boxes by linear
-interpolation, confidences by hold interpolation, the span by union).
-The dataset-driven ``do_eval`` loop waits for the training slice."""
+"""The evaluation loop (counterpart of ``vgqa_tpu/training/evaluator.py``):
+the forward + postprocess of one half-clip pass, the host-side merge of
+even/odd halves (boxes by linear interpolation, confidences by hold
+interpolation, the span by union), and ``do_eval``, which runs both halves
+of every test clip of a loader and summarizes the VidSTG metrics."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..data.collate import batch_to
+from ..data.metrics.evaluator import precision_recall
 from ..models.postprocess import postprocess
 from ..utils.containers import TextBatch, VideoBatch, normalize_uint8_video
-
-
-def precision_recall(predicted: List[int], true: List[int]) -> Tuple[float, float]:
-    """Keyframe selection precision/recall."""
-    ps, ts = set(predicted), set(true)
-    inter = len(ps & ts)
-    precision = 0.0 if not ps else inter / len(ps)
-    recall = 0.0 if not ts else inter / len(ts)
-    return precision, recall
 
 
 def linear_interp(bbox_dict: Dict[int, List[List[float]]]):
@@ -60,18 +53,24 @@ def linear_interp_conf(conf_dict: Dict[int, Any]):
     return {f: conf_dict[f] for f in fids}
 
 
-def make_eval_forward(model: torch.nn.Module, pixel_stats=None):
+def make_eval_forward(model: torch.nn.Module, pixel_stats=None,
+                      params: Optional[Dict[str, torch.Tensor]] = None):
     """Forward + postprocess of one pass, packed as ``[V, T, 6]``
     ([boxes | att | select]) and ``[V, 2]`` span indices, both left on the
-    model's device. uint8 frames are normalized on the device in the
-    model's dtype, with the letterbox and time padding re-zeroed."""
-    dtype = next(model.parameters()).dtype
+    model's device. ``params`` (a name -> tensor dict, e.g. the EMA) stands
+    in for the model's own parameters. uint8 frames are normalized on the
+    device in the parameters' dtype, with the letterbox and time padding
+    re-zeroed."""
+    dtype = next(iter(params.values())).dtype if params else next(model.parameters()).dtype
 
     @torch.inference_mode()
     def fwd(video: VideoBatch, text: TextBatch, ori_sizes, letterbox):
         if video.frames.dtype == torch.uint8:
             video = normalize_uint8_video(video, pixel_stats, dtype)
-        out = model(video, text)
+        if params:
+            out = torch.func.functional_call(model, params, (video, text))
+        else:
+            out = model(video, text)
         boxes, s_idx, e_idx = postprocess(out["pred_boxes"], out["pred_sted"],
                                           ori_sizes, video.time_mask, letterbox=letterbox)
         packed = torch.cat([boxes.float(), out["att_sequences"].float()[..., None],
@@ -127,3 +126,50 @@ def single_forward(fwd, video: VideoBatch, text: TextBatch, infos: List[Dict],
     """dispatch_forward + convert_outputs in one synchronous call."""
     packed, span = dispatch_forward(fwd, video, text, infos, canvas=canvas)
     return convert_outputs(packed, span, infos, gt_actioness)
+
+
+def do_eval(cfg, mode, logger, model, data_loader, evaluator,
+            params: Optional[Dict[str, torch.Tensor]] = None):
+    """The reference's do_eval: every test clip (2 x TRAIN_SAMPLE_NUM
+    frames) runs as its even and its odd half, one forward each on the
+    model's device; the halves merge on the host (boxes by linear
+    interpolation, attention by hold interpolation, keyframe precision and
+    recall averaged, the span by union) into ``evaluator``, which then
+    summarizes. ``params`` (e.g. the EMA weights) stands in for the model's
+    parameters. Returns the metrics dict."""
+    if logger:
+        logger.info(f"Start evaluation on the {mode} split of {cfg.DATASET.NAME}")
+    fwd = make_eval_forward(model, pixel_stats=(cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD),
+                            params=params)
+    device = next(model.parameters()).device
+
+    for batch in data_loader:
+        b = batch_to(batch, device)
+        video, text = b["video"], b["text"]
+        infos = batch["info"]
+        act = batch["targets"]["actioness"].numpy()
+
+        halves = []
+        for start in (0, 1):
+            infos_half = [{**info, "frame_ids": info["frame_ids"][start::2],
+                           "duration": len(info["frame_ids"][start::2])} for info in infos]
+            halves.append(single_forward(fwd, video.subsample(2, start), text, infos_half,
+                                         act[:, start::2]))
+
+        (b1, a1, t1, k1), (b2, a2, t2, k2) = halves
+        for vid in b1:
+            b1[vid].update(b2[vid])
+            a1[vid].update(a2[vid])
+            evaluator.update({vid: linear_interp(b1[vid])})
+            evaluator.update_att({vid: linear_interp_conf(a1[vid])})
+            evaluator.update_kf_pr(
+                {vid: [(k1[vid][0] + k2[vid][0]) / 2, (k1[vid][1] + k2[vid][1]) / 2]})
+            evaluator.video_update({vid: {
+                "sted": [min(t1[vid]["sted"][0], t2[vid]["sted"][0]),
+                         max(t1[vid]["sted"][1], t2[vid]["sted"][1])],
+                "qtype": t1[vid].get("qtype", "none")}})
+
+    evaluator.synchronize_between_processes()
+    if logger:
+        logger.info(f"Complete the inference on {mode} split of {cfg.DATASET.NAME}")
+    return evaluator.summarize()

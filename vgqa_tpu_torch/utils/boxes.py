@@ -1,9 +1,10 @@
 """Box geometry (counterpart of ``vgqa_tpu/utils/boxes.py``): format
 conversions and the paired (elementwise) IoU / GIoU of the grounding loss,
-which needs no N x M matrix."""
+which needs no N x M matrix, and the numpy IoU matrix of the evaluator."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -45,3 +46,22 @@ def paired_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> to
     enc_wh = (enc_br - enc_tl).clamp(min=0.0)
     enc_area = enc_wh[..., 0] * enc_wh[..., 1]
     return iou - (enc_area - union) / enc_area.clamp(min=1e-6)
+
+
+def np_box_area(boxes: np.ndarray) -> np.ndarray:
+    """Areas of xyxy numpy boxes [N, 4]."""
+    if boxes.ndim != 2 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes of shape {boxes.shape}, not [N, 4]")
+    return (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+
+
+def np_box_iou(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+    """IoU matrix [N, M] of xyxy numpy boxes (the host-side evaluator's)."""
+    area1 = np_box_area(boxes1)
+    area2 = np_box_area(boxes2)
+    tl = np.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
+    br = np.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    wh = np.clip(br - tl, 0, None)
+    inter = wh[:, :, 0] * wh[:, :, 1]
+    union = area1[:, None] + area2[None, :] - inter
+    return inter / np.maximum(union, 1e-12)

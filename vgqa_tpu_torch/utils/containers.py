@@ -24,6 +24,12 @@ class VideoBatch:
     pixel_mask: torch.Tensor
     time_mask: torch.Tensor
 
+    def subsample(self, stride: int, start: int = 0) -> "VideoBatch":
+        """Every ``stride``-th frame from ``start`` (the even/odd halves of
+        the two-pass evaluation)."""
+        return VideoBatch(self.frames[:, start::stride], self.pixel_mask,
+                          self.time_mask[:, start::stride])
+
 
 def normalize_uint8_video(
     video: VideoBatch, pixel_stats=None, dtype=torch.float32
