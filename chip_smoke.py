@@ -110,10 +110,30 @@
    routes for both trees (K4, K5), and one int4 decode step's logits with
    routes on against plain (K6 against the half-matmul form); prints phase
    times and peak memory.
+7b. Serves the port's web app (``vgqa_tpu_torch.app.server``, in this
+   process on an ephemeral port, on the card): configs/grounding_vidstg.yaml
+   as the file leaves it (420 px, 2 x 64 frames, bf16, random weights from
+   seed 0) and QA from a model directory holding only the InternLM2.5-7B /
+   InternViT-300M geometry (bf16, random weights, the 8,192-token context
+   of ``inference/qa._load_engine``). No decoder on the machine: placeholder
+   video files, their frames from the synthetic renderer (``video_info``,
+   ``read_frames``, ``read_frames_yuv`` and the QA tile loaders replaced).
+   GET health / videos / meta; a warm-up pair per grounding policy, then 4
+   concurrent /api/predict queued as pairs, pipelined (4 V = 2 forwards) and
+   with VGQA_GROUND_COALESCE=1 (2 V = 4 forwards); then 12 bursts of 4 per
+   policy on the server's coalescer as it runs (ABBA; the median, spread
+   and latency of each) and one profiled burst each (device idle share);
+   a warm-up /api/qa, 2
+   concurrent /api/qa at the largest frame count whose prompt and answer
+   fit the context (one chat_batch), one at 32 frames (500: the context
+   error, in its own slot), one /api/generate-queries. Checks statuses,
+   schemas, exact K1 / K2 / K4 / K5 launches, the coalesced responses
+   against the pipelined ones (serve's limits: box 64 px, score 0.1); prints
+   wall s/request per endpoint, clips/s per policy and the V = 4 peak.
 8. Prints a JSON line with the kernel table, then, as the last line,
    {"ok": true, "device": {...}}.
 
-The path phases (4-7) run under the port's entry points' precision policy
+The path phases (4-7b) run under the port's entry points' precision policy
 (TF32 off in cuBLAS and cuDNN, set by ``load_model`` and the trainer). A
 kernel wrapper never runs its plain version on the card: a shape its kernel
 does not take raises.
@@ -124,6 +144,7 @@ Any failure raises (non-zero exit) before the last line is printed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -2021,6 +2042,464 @@ def serve_qa(dev, card):
             "per_chat": per_chat}
 
 
+HTTP_VIDEOS = 4                      # placeholder files the HTTP phase serves
+HTTP_VIDEO_INFO = (200, 25.0, 640, 360)   # frames, fps, width, height of each
+HTTP_MAX_TOKENS = 16
+HTTP_POLICY_ROUNDS = 12              # bursts of 4 /api/predict per grounding policy
+
+
+def _http(base, path, body=None, timeout=900):
+    """(status, JSON body) of one request to the server under test (an error
+    status comes back, not raised)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method="POST" if body is not None else "GET",
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _burst(coalescer, send, n):
+    """Send ``n`` requests concurrently, all queued before the server's drain
+    thread starts (held back as if a batch were running), so it drains them
+    in batches of its ``max_batch``. Returns (results, wall s from the first
+    send to the last answer)."""
+    import threading
+
+    for _ in range(1000):                  # the previous burst's drain has ended
+        with coalescer._mutex:
+            if not coalescer._alive:
+                coalescer._alive = True
+                break
+        time.sleep(0.01)
+    else:
+        raise AssertionError("the server's drain thread did not end")
+    results = [None] * n
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, send(i)))
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + 120
+    while True:
+        with coalescer._mutex:
+            queued = len(coalescer._jobs)
+        if queued == n:
+            break
+        if time.perf_counter() > deadline:      # a request failed before it queued
+            threading.Thread(target=coalescer._drain_loop, daemon=True).start()
+            for t in threads:
+                t.join()
+            raise AssertionError(f"{queued} of {n} requests queued: {results}")
+        time.sleep(0.002)
+    threading.Thread(target=coalescer._drain_loop, daemon=True).start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def _concurrent(send, n):
+    """``n`` requests sent together from ``n`` threads: (results, each
+    one's latency s, wall s from the first send to the last answer)."""
+    import threading
+
+    results, lat = [None] * n, [0.0] * n
+
+    def one(i):
+        t = time.perf_counter()
+        results[i] = send(i)
+        lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, lat, time.perf_counter() - t0
+
+
+def _policy_rounds(server, predict, names, card):
+    """The two grounding policies on the server's coalescer as it runs (the
+    first request of a burst starts a drain, which takes what is queued by
+    then, up to ``max_batch``): ``HTTP_POLICY_ROUNDS`` bursts of 4
+    concurrent /api/predict per policy, interleaved ABBA, then one more
+    burst per policy under the profiler (CUDA activity only) for the
+    device's busy time (union of its kernel and copy intervals) and idle
+    share. Each burst's answers are checked, and its K1 / K2 launches
+    against the batches the drain made (pipelined: a forward per video;
+    coalesced: one per batch). The drain's batch sizes are read through a
+    counting wrapper of the coalescer's runner, which changes nothing
+    else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    coalescer = server._ground_coalescer
+    run_batch, sizes = coalescer.run_batch, []
+
+    def counted(requests):
+        sizes.append(len(requests))
+        return run_batch(requests)
+
+    def burst(policy):
+        server.GROUND_COALESCE = policy == "coalesced"
+        sizes.clear()
+        reset_launches()
+        res, lat, wall = _concurrent(predict, 4)
+        launches = read_launches()
+        for i, (status, body) in enumerate(res):
+            _check_predict(status, body, names[i % len(names)])
+        fwds = sum(sizes) if policy == "pipelined" else len(sizes)
+        want = {n: 0 for n in launches}
+        want.update(swin_block_canvas=12 * fwds, window_attention=6 * fwds)
+        if sum(sizes) != 4 or launches != want:
+            raise AssertionError(f"/api/predict {policy} round: batches {sizes}, launches "
+                                 f"{launches}, expected {want}")
+        return lat, wall, list(sizes), launches
+
+    out = {p: {"walls": [], "latencies": [], "batches": []} for p in ("pipelined", "coalesced")}
+    total = {}
+    coalescer.run_batch = counted
+    try:
+        for r in range(HTTP_POLICY_ROUNDS):
+            for policy in (("pipelined", "coalesced") if r % 2 == 0
+                           else ("coalesced", "pipelined")):
+                lat, wall, batches, launches = burst(policy)
+                out[policy]["walls"].append(wall)
+                out[policy]["latencies"].extend(lat)
+                out[policy]["batches"].append(batches)
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+        for policy, o in out.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lat, wall, batches, launches = burst(policy)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+            busy, end = 0.0, -1.0
+            for a, b in spans:
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+            o["profiled"] = ({"wall_s": wall, "busy_s": busy / 1e6,
+                              "idle_share": 1 - busy / 1e6 / wall, "device_events": len(spans),
+                              "batches": batches} if spans else None)
+    finally:
+        coalescer.run_batch = run_batch
+    for policy, o in out.items():
+        w, lat = sorted(o["walls"]), sorted(o["latencies"])
+        med = statistics.median(w)
+        o.update(median_wall_s=med, min_wall_s=w[0], max_wall_s=w[-1],
+                 clips_per_s=8 / med, inverse_throughput_s=med / 4,
+                 median_latency_s=statistics.median(lat), max_latency_s=lat[-1])
+        prof = o["profiled"]
+        idle = ("not measured (the profiler saw no device event)" if prof is None else
+                f"{prof['busy_s']:.3f} s busy of a {prof['wall_s']:.3f} s profiled burst, "
+                f"idle share {prof['idle_share']:.3f} (batches {prof['batches']})")
+        print(f"serve_http /api/predict policy rounds, {policy}: {HTTP_POLICY_ROUNDS} bursts of 4 "
+              f"concurrent requests on the server's own coalescer; wall per burst median "
+              f"{med:.4f} s (min {w[0]:.4f}, max {w[-1]:.4f}; all {[round(x, 4) for x in o['walls']]})"
+              f", {8 / med:.2f} clips/s at the median, inverse throughput {med / 4:.4f} s per "
+              f"request; request latency median {o['median_latency_s']:.4f} s, max "
+              f"{lat[-1]:.4f} s; drain batches {o['batches']}; device {idle}  [{card}]")
+    out["launches"] = total
+    return out
+
+
+def _check_predict(status, body, name):
+    if status != 200:
+        raise AssertionError(f"/api/predict {name}: {status} {body}")
+    if body["video"] != {"name": name, "url": f"/videos/{name}"}:
+        raise AssertionError(f"/api/predict video {body['video']}")
+    if body["meta"] != dict(zip(("total_frames", "fps", "width", "height"), HTTP_VIDEO_INFO)):
+        raise AssertionError(f"/api/predict meta {body['meta']}")
+    if set(body["result"]) != {"temporal", "tube"}:
+        raise AssertionError(f"/api/predict result keys {sorted(body['result'])}")
+    check_response(body["result"], HTTP_VIDEO_INFO[0])
+
+
+def serve_http(dev, card, config_path=None, llm_cfg=None, vit_cfg=None):
+    """The port's web app at full width: ``vgqa_tpu_torch.app.server`` in this
+    process on an ephemeral port, on the card, with
+    configs/grounding_vidstg.yaml as the file leaves it (420 px, 2 x 64
+    frames, bf16 serving, random weights from seed 0) and QA from a model
+    directory that holds only the InternLM2.5-7B / InternViT-300M geometry
+    (bf16, random weights, the 8,192-token context ``_load_engine`` keeps).
+    The machine has no video decoder, so the served videos are placeholder
+    files whose frames come from the synthetic renderer: ``video_info``,
+    ``read_frames`` and ``read_frames_yuv`` (grounding, /api/meta) and the QA
+    tile loaders are replaced here; everything after the decode is the
+    port's. Traffic: GET health / videos / meta; 4 concurrent /api/predict
+    queued before the drain starts, pipelined (drained as pairs: 4 V = 2
+    forwards) and again with VGQA_GROUND_COALESCE=1 (2 V = 4 forwards: the
+    V = 4 peak and the responses' agreement); both policies again on the
+    coalescer as it runs (``_policy_rounds``: the times); 2 concurrent /api/qa at the
+    largest frame count whose prompt and answer fit the context (one
+    chat_batch); one /api/qa at 32 frames (500, the context error, in its
+    own slot); one /api/generate-queries. Checks statuses, schemas, exact
+    K1 / K2 / K4 / K5 launches, and the coalesced responses against the
+    pipelined ones within ``serve``'s route limits. ``config_path`` /
+    ``llm_cfg`` / ``vit_cfg`` replace the full-width models (a small dry run
+    of the phase's code)."""
+    from vgqa_tpu_torch.app import server
+    from vgqa_tpu_torch.data import video_io
+    from vgqa_tpu_torch.data.synthetic import frame_reader
+    from vgqa_tpu_torch.inference import grounding, qa
+    from vgqa_tpu_torch.qa import LLMConfig, QAEngine, ViTConfig
+    from vgqa_tpu_torch.qa.llm import LLM, TokenEmbedding
+    from vgqa_tpu_torch.qa.vit import VisionTower
+
+    from vgqa_tpu_torch.config import build_default_cfg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config_path = config_path or os.path.join(here, "configs", "grounding_vidstg.yaml")
+    cfg = build_default_cfg()
+    cfg.merge_from_file(config_path)
+    res = cfg.INPUT.RESOLUTION
+    total, fps, _, _ = HTTP_VIDEO_INFO
+    names = [f"http_vid{i:03d}.mp4" for i in range(HTTP_VIDEOS)]
+    llm_cfg = llm_cfg or LLMConfig.internlm2_5_7b()
+    vit_cfg = vit_cfg or ViTConfig.internvit_300m()
+    readers = {}
+
+    def read_frames(path, ids, *args, size=None, **kwargs):
+        return readers[size](path, ids)
+
+    def video_tiles(path, bound=None, input_size=448, max_num=1, num_segments=32):
+        input_size = vit_cfg.image_size if input_size == 448 else input_size  # as _load_tiles
+        ids = np.clip(video_io.frame_indices_with_bound(bound, fps, total - 1, num_segments),
+                      0, total - 1)
+        return read_frames(path, ids, size=(input_size, input_size)), [1] * len(ids)
+
+    real = {(video_io, "video_info"): video_io.video_info,
+            (grounding, "video_info"): grounding.video_info,
+            (grounding, "read_frames"): grounding.read_frames,
+            (grounding, "read_frames_yuv"): grounding.read_frames_yuv,
+            (qa, "load_video_tiles"): qa.load_video_tiles,
+            (qa, "load_video_tiles_yuv"): qa.load_video_tiles_yuv}
+    saved = {k: getattr(server, k) for k in ("VIDEOS_ROOT", "GROUNDING_CONFIG",
+                                             "GROUNDING_CKPT", "QA_MODEL_DIR", "DEVICE",
+                                             "GROUND_COALESCE")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_http_", dir=here) as root:
+        for name in names:
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(bytes(4096))
+        qa_dir = os.path.join(root, "qa")
+        os.makedirs(qa_dir)
+        with open(os.path.join(qa_dir, "vgqa_tpu_config.json"), "w") as f:
+            json.dump({"llm": dataclasses.asdict(llm_cfg), "vit": dataclasses.asdict(vit_cfg)}, f)
+        t0 = time.perf_counter()
+        for size in ((res, res), (vit_cfg.image_size, vit_cfg.image_size)):
+            readers[size] = frame_reader(total, size, seed=0)
+            for name in names:                       # render in set-up
+                readers[size](name, [0])
+        print(f"serve_http: no video decoder on this machine: the {HTTP_VIDEOS} placeholder "
+              f"videos ({total} frames, {fps} fps, 640x360) are served from the synthetic "
+              "renderer (data/synthetic.frame_reader, at the decode size), replacing "
+              "video_info, read_frames, read_frames_yuv and the QA tile loaders; rendered in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for (mod, attr) in real:
+            setattr(mod, attr, {"video_info": lambda path: HTTP_VIDEO_INFO,
+                                "read_frames": read_frames,
+                                "read_frames_yuv": lambda *a, **kw: None,
+                                "load_video_tiles": video_tiles,
+                                "load_video_tiles_yuv": lambda *a, **kw: None}[attr])
+        server.VIDEOS_ROOT = server.Path(root).resolve()
+        server.GROUNDING_CONFIG = config_path
+        server.GROUNDING_CKPT = ""
+        server.QA_MODEL_DIR = qa_dir
+        server.DEVICE = None if dev.type == "cuda" else str(dev)       # None: the card
+        srv = server.make_server(0, "127.0.0.1")
+        import threading
+
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            out = _serve_http_traffic(base, server, cfg, names, llm_cfg, vit_cfg,
+                                      (QAEngine, LLM, TokenEmbedding, VisionTower), card)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            for (mod, attr), fn in real.items():
+                setattr(mod, attr, fn)
+            for k, v in saved.items():
+                setattr(server, k, v)
+            grounding._load_cached.cache_clear()
+            qa._load_cached.cache_clear()
+    return out
+
+
+def _serve_http_traffic(base, server, cfg, names, llm_cfg, vit_cfg, qa_mods, card):
+    QAEngine, LLM, TokenEmbedding, VisionTower = qa_mods
+    px = cfg.INPUT.RESOLUTION
+    walls = {}
+    for path, want in (("/api/health", {"ok": True}),
+                       ("/api/videos", {"directory": str(server.VIDEOS_ROOT), "files": names}),
+                       ("/api/meta?video=" + names[0],
+                        dict(zip(("total_frames", "fps", "width", "height"), HTTP_VIDEO_INFO)))):
+        t0 = time.perf_counter()
+        status, body = _http(base, path)
+        walls[path.split("?")[0]] = time.perf_counter() - t0
+        if (status, body) != (200, want):
+            raise AssertionError(f"GET {path}: {status} {body}")
+
+    # ---- grounding: warm-up, then 4 concurrent requests per policy ---------
+    def predict(i):
+        return _http(base, "/api/predict", {"video": names[i % len(names)],
+                                            "query": f"the person in red walks to the car {i}"})
+
+    t0 = time.perf_counter()
+    for coalesce in (False, True):         # the model (built on the first), each forward shape
+        server.GROUND_COALESCE = coalesce  # the server's reading of VGQA_GROUND_COALESCE
+        res, _ = _burst(server._ground_coalescer, predict, 2)
+        for i, (status, body) in enumerate(res):
+            _check_predict(status, body, names[i])
+    torch.cuda.synchronize()
+    print(f"serve_http: grounding model built and warmed (one pair per policy) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for policy, coalesce, per_fwd in (("pipelined", False, 2), ("coalesced", True, 4)):
+        server.GROUND_COALESCE = coalesce
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res, wall = _burst(server._ground_coalescer, predict, 4)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, (status, body) in enumerate(res):
+            _check_predict(status, body, names[i % len(names)])
+        fwds = 4 * 2 // per_fwd
+        want = {n: 0 for n in launches}
+        want.update(swin_block_canvas=12 * fwds, window_attention=6 * fwds)
+        if launches != want:
+            raise AssertionError(f"/api/predict {policy}: launches {launches}, expected {want} "
+                                 f"({fwds} forwards of V = {per_fwd})")
+        runs[policy] = {"wall_s": wall, "forwards": fwds, "rows_per_forward": per_fwd,
+                        "peak_gb": peak, "launches": launches,
+                        "results": [b["result"] for _, b in res]}
+        print(f"serve_http /api/predict x4 queued as pairs, {policy} ({fwds} forwards of V = "
+              f"{per_fwd}, {px} px, {2 * cfg.INPUT.TRAIN_SAMPLE_NUM} frames each): wall "
+              f"{wall:.3f} s (one burst: times are the policy rounds' below), peak "
+              f"{peak:.2f} GiB; launches K1 "
+              f"{launches['swin_block_canvas']} K2 {launches['window_attention']}  [{card}]")
+    box = att = 0.0
+    spans = []
+    for a, b in zip(runs["coalesced"]["results"], runs["pipelined"]["results"]):
+        if [e["frame"] for e in a["tube"]] != [e["frame"] for e in b["tube"]]:
+            raise AssertionError("coalesced and pipelined tubes cover other frames")
+        box = max(box, float(np.abs(np.asarray([e["bbox"] for e in a["tube"]])
+                                    - np.asarray([e["bbox"] for e in b["tube"]])).max()))
+        att = max(att, float(np.abs(np.asarray([e["score"] for e in a["tube"]])
+                                    - np.asarray([e["score"] for e in b["tube"]])).max()))
+        spans.append(((a["temporal"]["start"], a["temporal"]["end"]),
+                      (b["temporal"]["start"], b["temporal"]["end"])))
+    print(f"serve_http coalesced vs pipelined responses (4 requests): max |d box| {box:.3f} px "
+          f"(of 640x360), max |d score| {att:.4f}, spans (coalesced, pipelined) {spans}")
+    # serve's route limits: bf16 rounding over 40-odd layers moves boxes by a
+    # few pixels; a wrong row merge moves them by hundreds
+    if not (np.isfinite(box) and box < 64.0 and att < 0.1):
+        raise AssertionError("coalesced and pipelined responses disagree")
+    rounds = _policy_rounds(server, predict, names, card)
+
+    # ---- QA: the frame count that fits the context, counted on a meta engine
+    with torch.device("meta"):
+        probe = QAEngine(llm_cfg, vit_cfg, LLM(llm_cfg), TokenEmbedding(llm_cfg),
+                         VisionTower(vit_cfg))
+
+    def fits(question):
+        return max(n for n in range(1, 33)
+                   if len(probe.build_prompt_ids(question, [1] * n)[0]) + HTTP_MAX_TOKENS
+                   <= probe.max_seq_len)
+
+    def launches_of(n, question):
+        """(K4, K5) launches of one request: 24 per vision chunk, 32 per
+        prefill chunk."""
+        lp, chunked = probe._plan_prefill(len(probe.build_prompt_ids(question, [1] * n)[0]))
+        return 24 * -(-n // probe.vision_chunk), 32 * (lp // probe.PREFILL_CHUNK if chunked else 1)
+
+    questions = ["What is happening in this video?", "Who is in the video, and what do they do?"]
+    gen_question = server.generate_queries_question(5)
+    n_qa = min(fits(q) for q in questions)
+    n_gen = fits(gen_question)
+    want_qa = [launches_of(n_qa, q) for q in questions]
+    want_gen = launches_of(n_gen, gen_question)
+    context = probe.max_seq_len
+    del probe
+    print(f"serve_http QA frames: {n_qa} for /api/qa, {n_gen} for /api/generate-queries (the "
+          f"largest counts whose prompt + {HTTP_MAX_TOKENS} answer tokens fit the {context}-token "
+          "context)")
+
+    def qa_body(i, n, question):
+        return {"video": names[i], "question": question, "num_frames": n,
+                "max_tokens": HTTP_MAX_TOKENS}
+
+    t0 = time.perf_counter()
+    status, body = _http(base, "/api/qa", qa_body(0, 4, questions[0]))
+    torch.cuda.synchronize()
+    if status != 200 or set(body) != {"answer"}:
+        raise AssertionError(f"/api/qa warm-up: {status} {body}")
+    print(f"serve_http: QA engine built (bf16, random weights) and warmed by a 4-frame "
+          f"request in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, wall = _burst(server._qa_coalescer, lambda i: _http(
+        base, "/api/qa", qa_body(i, n_qa, questions[i])), 2)
+    torch.cuda.synchronize()
+    qa_launches = read_launches()
+    qa_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for status, body in res:
+        if status != 200 or set(body) != {"answer"} or not isinstance(body["answer"], str):
+            raise AssertionError(f"/api/qa: {status} {body}")
+    want = {n: 0 for n in qa_launches}
+    want.update(flash_mha=sum(w[0] for w in want_qa), flash_gqa_causal=sum(w[1] for w in want_qa))
+    if qa_launches != want:
+        raise AssertionError(f"/api/qa x2: launches {qa_launches}, expected {want}")
+    walls["/api/qa"] = wall / 2
+    print(f"serve_http /api/qa x2 concurrent ({n_qa} frames, one chat_batch, {HTTP_MAX_TOKENS} "
+          f"tokens at most): {wall:.3f} s, {wall / 2:.3f} s/request, peak {qa_peak:.2f} GiB; "
+          f"launches K4 {qa_launches['flash_mha']} K5 {qa_launches['flash_gqa_causal']}; "
+          f"answers {[b['answer'][:20] for _, b in res]!r}  [{card}]")
+
+    t0 = time.perf_counter()
+    status, body = _http(base, "/api/qa", qa_body(1, 32, questions[0]))
+    walls["/api/qa (32 frames, refused)"] = time.perf_counter() - t0
+    if status != 500 or "ValueError: prompt is" not in body.get("detail", "") \
+            or f"context is {context}" not in body["detail"]:
+        raise AssertionError(f"/api/qa at 32 frames: {status} {body}")
+    print(f"serve_http /api/qa at 32 frames: {status} {body['detail']!r}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    status, body = _http(base, "/api/generate-queries", {"video": names[2], "num_queries": 5,
+                                                         "num_frames": n_gen,
+                                                         "max_tokens": HTTP_MAX_TOKENS})
+    torch.cuda.synchronize()
+    walls["/api/generate-queries"] = time.perf_counter() - t0
+    gen_launches = read_launches()
+    if status != 200 or set(body) != {"queries", "raw_answer"} \
+            or not isinstance(body["queries"], list):
+        raise AssertionError(f"/api/generate-queries: {status} {body}")
+    want = {n: 0 for n in gen_launches}
+    want.update(flash_mha=want_gen[0], flash_gqa_causal=want_gen[1])
+    if gen_launches != want:
+        raise AssertionError(f"/api/generate-queries: launches {gen_launches}, expected {want}")
+    print(f"serve_http /api/generate-queries ({n_gen} frames): {walls['/api/generate-queries']:.3f}"
+          f" s; launches K4 {gen_launches['flash_mha']} K5 {gen_launches['flash_gqa_causal']}; "
+          f"{len(body['queries'])} queries parsed from {body['raw_answer'][:30]!r}  [{card}]")
+    return {"runs": runs, "rounds": rounds, "walls": walls, "qa_launches": qa_launches,
+            "gen_launches": gen_launches, "n_qa": n_qa, "n_gen": n_gen, "qa_peak_gb": qa_peak,
+            "box_diff": box, "att_diff": att}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2078,7 +2557,13 @@ def main() -> int:
     vidstg = phase(train_vidstg)
     tr_swin = phase(train_trainable)
     qa = phase(serve_qa)
+    http = phase(serve_http)
     qa_l = qa["launches"]
+    http_l = {k: sum(run[k] for run in (http["runs"]["pipelined"]["launches"],
+                                        http["runs"]["coalesced"]["launches"],
+                                        http["rounds"]["launches"],
+                                        http["qa_launches"], http["gen_launches"]))
+              for k in http["qa_launches"]}
     vl = vidstg["launches"]
 
     k1_fwd = sum(r["ms"] * r["per_fwd"] for r in k1_rows)
@@ -2250,6 +2735,26 @@ def main() -> int:
                      for k, n, _ in QA_PROJ], 32, k6_rows),
              device_ms_per_token=k6_token_ms, host_us_per_call=k6_host_us),
     ]}
+    for row in table["kernels"]:           # the HTTP phase's launches, path by path
+        n = (http_l[row["name"]] if row["name"] in http_l
+             else http_l["flash_mha_train.fwd"] + http_l["flash_mha_train.bwd"])
+        row["launches"] += n
+        row["launches_by_path"]["serve_http"] = n
+    hr, ro = http["runs"], http["rounds"]
+    print(f"serve_http (420 px grounding, bf16; QA 7.7B bf16, 8,192-token context): wall "
+          f"s/request {json.dumps({k: round(v, 4) for k, v in http['walls'].items()})}; "
+          f"/api/predict x4 concurrent, median of {HTTP_POLICY_ROUNDS} bursts: pipelined "
+          f"{ro['pipelined']['median_wall_s']:.4f} s/burst ({ro['pipelined']['clips_per_s']:.2f}"
+          f" clips/s, request latency median {ro['pipelined']['median_latency_s']:.4f} s), "
+          f"coalesced {ro['coalesced']['median_wall_s']:.4f} s/burst "
+          f"({ro['coalesced']['clips_per_s']:.2f} clips/s, request latency median "
+          f"{ro['coalesced']['median_latency_s']:.4f} s); idle share of a profiled burst "
+          f"pipelined {(ro['pipelined']['profiled'] or {}).get('idle_share', 'not measured')}, "
+          f"coalesced {(ro['coalesced']['profiled'] or {}).get('idle_share', 'not measured')}; "
+          f"peak of the V = 4 forward {hr['coalesced']['peak_gb']:.2f} GiB (V = 2: "
+          f"{hr['pipelined']['peak_gb']:.2f}); coalesced vs pipelined max |d box| "
+          f"{http['box_diff']:.3f} px, max |d score| {http['att_diff']:.4f}; launches {http_l}"
+          f"  [{card}]")
     print("kernel table: ms / plain_ms / bound_ms / library_ms = sum over one V=2 forward "
           "at 224 px for K1 and K1' (their 12 calls) and K2 (6 calls at S=124; "
           "device_ms / library_device_ms / exp_floor_ms the same by device time, call_* "

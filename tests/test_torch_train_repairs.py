@@ -53,7 +53,10 @@ WALKED = ("data/words.py", "data/annotations.py", "data/clip_sampling.py",
           "data/transforms.py", "data/synthetic.py", "data/dataset.py", "data/loader.py",
           "data/metrics/evaluator.py", "training/evaluator.py", "training/trainer.py",
           "utils/metrics_logger.py", "utils/log_setup.py", "utils/tensorboard.py",
-          "tools/train.py", "tools/evaluate.py", "ops/kernels/padding.py")
+          "tools/train.py", "tools/evaluate.py", "ops/kernels/padding.py",
+          # serving entry points and the converters
+          "app/server.py", "tools/infer_grounding.py", "tools/infer_qa.py",
+          "tools/convert_weights.py", "models/convert.py", "models/convert_grounding.py")
 
 
 def test_port_imports_cv2_and_yaml_only_inside_functions():

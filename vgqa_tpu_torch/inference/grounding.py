@@ -11,8 +11,10 @@ decoder is present, half the bytes); the normalization and the BT.601
 conversion run on the device. ``predict_many`` launches each video's
 forward as soon as its frames are uploaded, so the device works on video i
 while the host decodes video i+1; results are fetched after the last
-launch. A request may also carry already-decoded frames (``frames``), which
-enter the same path after the decode.
+launch. With ``VGQA_GROUND_COALESCE=1`` it instead groups videos of one
+decode format and frame count into one V = 2N forward. A request may also
+carry already-decoded frames (``frames``), which enter both paths after the
+decode.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import os
 import warnings
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ from ..training.evaluator import (
     linear_interp,
     linear_interp_conf,
     make_eval_forward,
+    single_forward,
 )
 from ..utils.containers import TextBatch, VideoBatch
 from ..utils.device import apply_precision_policy, resolve_device
@@ -158,9 +161,16 @@ def _load_yaml_config(config_path: str):
     return cfg
 
 
+def _load_model(config_path: str, ckpt_path: str, device=None) -> LoadedModel:
+    """The served model for (config, checkpoint, device), built once: the
+    card unless ``device`` asks for another (``"cpu"``), and ``None`` and
+    ``"cuda"`` name one entry."""
+    return _load_cached(config_path, ckpt_path, str(resolve_device(device)))
+
+
 @lru_cache(maxsize=2)
-def _load_model(config_path: str, ckpt_path: str, device_str: Optional[str] = None):
-    return load_model(_load_yaml_config(config_path), ckpt_path, device_str)
+def _load_cached(config_path: str, ckpt_path: str, device: str) -> LoadedModel:
+    return load_model(_load_yaml_config(config_path), ckpt_path, device)
 
 
 def _upload(chunk: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -312,39 +322,71 @@ def predict(
     per-frame tube (the reference's schema). ``batch_size`` is accepted
     for the reference's signature; the two halves run as one batch."""
     del batch_size
-    loaded = _load_model(cfg_path, ckpt_path, device_str)
-    result = predict_many([{"video_path": video_path, "query": query}], loaded=loaded)[0]
+    result = predict_many([{"video_path": video_path, "query": query}], cfg_path, ckpt_path,
+                          device=device_str)[0]
     if isinstance(result, Exception):
         raise result
     return result
 
 
+def _run_group(loaded: LoadedModel, group) -> None:
+    """One V = 2N forward over prepared videos that share (decode format,
+    frame count); fills each job's ``out`` (rows 2i and 2i + 1 are video
+    i's halves)."""
+    fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, group)
+    b1, a1, t1, _ = single_forward(fwd, video, text, infos, gt_act, canvas=canvas)
+    for i, job in enumerate(group):
+        job["out"] = _merge_halves(b1, a1, t1, 2 * i, job["fps"])
+
+
+def coalesce_from_env() -> bool:
+    """The batching policy ``VGQA_GROUND_COALESCE`` asks for (``1``: one
+    forward per group of videos; anything else: pipelined)."""
+    return os.environ.get("VGQA_GROUND_COALESCE", "0") == "1"
+
+
 def predict_many(requests, cfg_path: str = DEFAULT_CONFIG_PATH,
                  ckpt_path: str = DEFAULT_CHECKPOINT_PATH,
-                 loaded: Optional[LoadedModel] = None):
-    """Serve N grounding requests, pipelined: each video's V = 2 forward is
-    launched as soon as its frames are on the device, and all results are
-    fetched after the last launch.
+                 loaded: Optional[LoadedModel] = None, device=None,
+                 coalesce: Optional[bool] = None):
+    """Serve N grounding requests.
+
+    Default policy (pipelined): each video's V = 2 forward is launched as
+    soon as its frames are on the device, and all results are fetched after
+    the last launch. With ``coalesce`` (``None``: ``VGQA_GROUND_COALESCE=1``,
+    read per call) the prepared videos are grouped by (decode format, frame
+    count) and each group runs as one V = 2N forward.
 
     ``requests``: dicts with ``query`` and either ``video_path`` or decoded
     ``frames`` (see ``_prepare``). ``loaded`` serves with an already built
-    model instead of the cached one for (cfg_path, ckpt_path). Returns a list
+    model instead of the cached one for (cfg_path, ckpt_path, device);
+    ``device`` is the card unless ``"cpu"`` is asked for. Returns a list
     aligned with ``requests``: each slot is the response dict or the
     exception raised preparing that request (a bad video fails only its
     own slot)."""
-    loaded = loaded or _load_model(cfg_path, ckpt_path)
-    slots = [None] * len(requests)
+    loaded = loaded or _load_model(cfg_path, ckpt_path, device)
+    if coalesce is None:
+        coalesce = coalesce_from_env()
+    jobs = [None] * len(requests)
     pending = []
     for i, req in enumerate(requests):
         try:
-            job = _prepare(loaded, req)
+            jobs[i] = _prepare(loaded, req)
         except Exception as e:  # noqa: BLE001 - per-slot failure isolation
-            slots[i] = e
+            jobs[i] = e
             continue
-        fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, [job])
-        pending.append((i, job, dispatch_forward(fwd, video, text, infos, canvas=canvas),
-                        infos, gt_act))
-    for i, job, (packed, span), infos, gt_act in pending:
+        if not coalesce:
+            fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, [jobs[i]])
+            pending.append((jobs[i], dispatch_forward(fwd, video, text, infos, canvas=canvas),
+                            infos, gt_act))
+    if coalesce:
+        groups: Dict[Tuple[bool, int], list] = {}
+        for job in jobs:
+            if not isinstance(job, Exception):
+                groups.setdefault((job["yuv"], int(job["frames"].shape[0])), []).append(job)
+        for group in groups.values():
+            _run_group(loaded, group)
+    for job, (packed, span), infos, gt_act in pending:
         b1, a1, t1, _ = convert_outputs(packed, span, infos, gt_act)
-        slots[i] = _merge_halves(b1, a1, t1, 0, job["fps"])
-    return slots
+        job["out"] = _merge_halves(b1, a1, t1, 0, job["fps"])
+    return [j if isinstance(j, Exception) else j["out"] for j in jobs]

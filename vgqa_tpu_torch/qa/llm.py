@@ -215,6 +215,7 @@ class LLM(nn.Module):
         flash_prefill: Optional[Dict[str, Any]] = None,
         w8a8: bool = False,
         kernels: bool = True,
+        collect_act_stats: bool = False,
     ):
         """Port of ``llm_forward`` (llm_functional.py:90).
 
@@ -225,7 +226,10 @@ class LLM(nn.Module):
         ``flash_prefill`` = {"q_offset": host int, "length": device scalar}
         routes the attention through K5 (``attn_mask`` is then ignored; B
         must be 1). ``kernels`` routes decode-sized int4 products to K6.
-        Returns (logits, cache)."""
+        Returns (logits, cache); with ``collect_act_stats`` also the
+        SmoothQuant calibration statistics, ``{layer_i: {qkv_in, o_in,
+        mlp_in, down_in}}``: the f32 absmax over all tokens of each input
+        channel of the qkv, o, gate/up and down projections."""
         cfg = self.cfg
         x = input_embeds
         B, L, _ = x.shape
@@ -237,6 +241,7 @@ class LLM(nn.Module):
 
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
         new_cache: Cache = []
+        act_stats: Dict[str, Dict[str, torch.Tensor]] = {}
         for i, p in enumerate(self.layers()):
             h = p.attn_norm(x)
             q = proj(p.q_proj, h).reshape(B, L, cfg.num_heads, hd)
@@ -284,13 +289,23 @@ class LLM(nn.Module):
             h2 = p.mlp_norm(x)
             m = torch.nn.functional.silu(proj(p.gate_proj, h2)) * proj(p.up_proj, h2)
             x = x + proj(p.down_proj, m)
+            if collect_act_stats:
+                act_stats[f"layer_{i}"] = {"qkv_in": _absmax(h), "o_in": _absmax(ctx),
+                                           "mlp_in": _absmax(h2), "down_in": _absmax(m)}
 
         x = self.final_norm(x)
         if lm_head_rows is not None:
             x = x[torch.arange(B, device=x.device), lm_head_rows.to(x.device)][:, None]
         # the head never takes W8A8 activations (llm_functional.py:330)
         logits = proj(self.lm_head, x, w8=False)
+        if collect_act_stats:
+            return logits, new_cache, act_stats
         return logits, new_cache
+
+
+def _absmax(t: torch.Tensor) -> torch.Tensor:
+    """Per-channel absmax over every token (the last axis kept), in f32."""
+    return t.float().abs().reshape(-1, t.shape[-1]).amax(0)
 
 
 def _attention(q, keys, values, ent, attn_mask, group: int, dtype) -> torch.Tensor:

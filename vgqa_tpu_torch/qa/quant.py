@@ -18,14 +18,22 @@ Each form is one linear module: ``DenseLinear`` and ``Int8Linear`` take
 ``forward(x, w8a8=False)``, ``Int4Linear`` takes ``forward(x, kernels=True)``
 (int4 activations stay bf16, so W8A8 does not apply);
 :func:`quantize_llm_params` / :func:`quantize_llm_params_int4` swap the
-modules of an LLM in place, on the device the weights are on. The
-SmoothQuant fold and its accuracy gate are not ported yet.
+modules of an LLM in place, on the device the weights are on;
+:func:`quantize_llm_tree` quantizes a flax-layout parameter tree instead
+(what ``tools/convert_weights qa --quantize`` writes).
+
+SmoothQuant (before quantizing): :func:`collect_smooth_stats` runs the float
+LLM over calibration tokens and reads each projection input's per-channel
+absmax; :func:`smooth_llm_params` folds s = a^alpha / w^(1-alpha) into the
+norms and kernels, exact in real arithmetic. Its accuracy gate
+(``qa/gate_w8a8.py`` in the JAX package) is not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -270,3 +278,136 @@ def linear_forms(llm: nn.Module) -> Dict[str, Any]:
         if isinstance(m, (DenseLinear, Int8Linear, Int4Linear)):
             out[type(m).__name__] = out.get(type(m).__name__, 0) + 1
     return out
+
+
+# -- parameter trees ----------------------------------------------------------------
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def quantize_llm_tree(tree: Dict[str, Any], int4: bool = False,
+                      group_size: int = INT4_GROUP) -> Dict[str, Any]:
+    """A flax-layout llm tree with its projections quantized: int8 per
+    channel for every target (``int4=False``), or int4 (groups of
+    ``group_size``) for the seven projections with the head int8, as the JAX
+    package's ``quantize_llm_params`` / ``quantize_llm_params_int4`` do.
+    Leaves may be numpy or torch; the quantized ones come back as torch
+    tensors, the rest as they were. Projections already quantized (no
+    ``kernel``) are kept."""
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if not isinstance(v, dict):
+                out[k] = v
+            elif "kernel" in v and int4 and k in INT4_TARGETS:
+                out[k] = quantize_kernel_int4(_tensor(v["kernel"]), group_size)
+            elif "kernel" in v and k in QUANT_TARGETS:
+                out[k] = quantize_kernel(_tensor(v["kernel"]))
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(tree)
+
+
+# -- SmoothQuant ------------------------------------------------------------------
+def collect_smooth_stats(raw_params: Dict[str, Any], cfg, token_ids,
+                         dtype: torch.dtype = torch.float32,
+                         device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Calibration pass: per-layer, per-input-channel activation absmax.
+
+    ``raw_params`` is the unquantized llm tree, holding ``tok_embeddings``
+    for the embedding lookup as converted trees do; ``token_ids`` [B, L] are
+    calibration prompts (random ids over the vocab will do: the outlier
+    channels live in the weights and embeddings). The LLM is built on
+    ``device`` (the card unless ``"cpu"``) in ``dtype`` and run causally
+    over the ids. Returns f32 CPU tensors, ``{layer_i: {qkv_in, o_in,
+    mlp_in, down_in}}``."""
+    from ..models.convert_jax import state_dict_from_jax
+    from ..utils.device import resolve_device
+    from .llm import LLM, load_llm_state
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        llm = LLM(cfg)
+    llm = llm.to_empty(device=device).to(dtype).eval()
+    load_llm_state(llm, state_dict_from_jax(
+        {k: v for k, v in raw_params.items() if k != "tok_embeddings"}))
+    ids = _tensor(token_ids).long().clamp(0, cfg.vocab_size - 1)
+    B, L = ids.shape
+    table = _tensor(raw_params["tok_embeddings"]["embedding"])
+    embeds = table[ids].to(device=device, dtype=dtype)
+    pos = torch.arange(L, device=device)[None].expand(B, L)
+    mask = torch.ones((L, L), dtype=torch.bool, device=device).tril()[None].expand(B, L, L)
+    with torch.no_grad():
+        _, _, stats = llm(embeds, pos, mask, collect_act_stats=True)
+    return {layer: {k: v.cpu() for k, v in st.items()} for layer, st in stats.items()}
+
+
+def _smooth_scales(act_max, weight_in_absmax, alpha: float = 0.5,
+                   lo: float = 1e-2, hi: float = 1e4) -> torch.Tensor:
+    """Per-input-channel migration factor s = a^alpha / w^(1-alpha)."""
+    a = _tensor(act_max).float().clamp_min(1e-5)
+    w = _tensor(weight_in_absmax).float().clamp_min(1e-5)
+    return (a ** alpha / w ** (1.0 - alpha)).clamp(lo, hi)
+
+
+def smooth_llm_params(raw_params: Dict[str, Any], cfg, stats: Dict[str, Any],
+                      alpha: float = 0.5) -> Dict[str, Any]:
+    """Migrate activation channel outliers into the weights of a raw llm
+    tree, exact in real arithmetic and free at run time (every divide folds
+    into a static parameter):
+
+    * qkv inputs: attn_norm.scale /= s; q/k/v kernel rows *= s
+    * mlp inputs: mlp_norm.scale /= s; gate/up kernel rows *= s
+    * o_proj input (the attention context): v_proj output columns /= s,
+      o_proj rows *= s. Context channel (head h, dim d) comes from v column
+      (kv_head h // group, d), shared by the group's heads, so s is taken
+      per (kv_head, d) with a max over the group.
+    * down_proj input: up_proj output columns /= s; down_proj rows *= s
+      (m = silu(gate) * up is linear in up).
+
+    Apply before quantizing. Returns a new tree (touched leaves as torch
+    tensors; the rest as they were)."""
+    out = {k: (dict(v) if isinstance(v, dict) else v) for k, v in raw_params.items()}
+    group = cfg.num_heads // cfg.num_kv_heads
+    hd = cfg.head_dim
+    qkv, gate_up = ("q_proj", "k_proj", "v_proj"), ("gate_proj", "up_proj")
+
+    for i in range(cfg.num_layers):
+        p = {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in raw_params[f"layer_{i}"].items()}
+        st = stats[f"layer_{i}"]
+
+        def kernel(name):
+            return _tensor(p[name]["kernel"])
+
+        def rows_absmax(names):
+            return torch.stack([kernel(n).abs().amax(1) for n in names]).amax(0)
+
+        s1 = _smooth_scales(st["qkv_in"], rows_absmax(qkv), alpha)
+        p["attn_norm"]["scale"] = _tensor(p["attn_norm"]["scale"]) / s1
+        for n in qkv:
+            p[n]["kernel"] = kernel(n) * s1[:, None]
+
+        s2 = _smooth_scales(st["mlp_in"], rows_absmax(gate_up), alpha)
+        p["mlp_norm"]["scale"] = _tensor(p["mlp_norm"]["scale"]) / s2
+        for n in gate_up:
+            p[n]["kernel"] = kernel(n) * s2[:, None]
+
+        a_ctx = _tensor(st["o_in"]).reshape(cfg.num_kv_heads, group, hd).amax(1)
+        w_o = kernel("o_proj").abs().amax(1).reshape(cfg.num_kv_heads, group, hd).amax(1)
+        s3 = _smooth_scales(a_ctx, w_o, alpha)                            # [KVH, hd]
+        p["v_proj"]["kernel"] = kernel("v_proj") / s3.reshape(-1)[None, :]
+        o_rows = s3[:, None, :].expand(-1, group, -1).reshape(-1)
+        p["o_proj"]["kernel"] = kernel("o_proj") * o_rows[:, None]
+
+        s4 = _smooth_scales(st["down_in"], kernel("down_proj").abs().amax(1), alpha)
+        p["up_proj"]["kernel"] = kernel("up_proj") / s4[None, :]
+        p["down_proj"]["kernel"] = kernel("down_proj") * s4[:, None]
+        out[f"layer_{i}"] = p
+    return out
+
