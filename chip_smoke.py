@@ -78,7 +78,15 @@
    share over the 2 profiled last steps), ``test`` (do_eval, 4 items x 128
    frames in two half-passes; s/item), peak memory, K1 / K2 / K3 launches
    per step and per half-pass exact, then the evaluate tool on
-   ``model_final_params`` (its metric keys are the JAX tool's). Then two bf16
+   ``model_final_params`` (its metric keys are the JAX tool's). Then
+   train_ddp: the same path data-parallel, each rank a spawned process that
+   sets the ``VGQA_*`` contract and calls ``tools.train.main``: 2 gloo ranks
+   on card 0 (4 steps at a global batch of 2, ``test`` merged; exact
+   launches per rank, the ranks' parameters bit-equal, checkpoints written
+   once, merged metrics equal, one dropout-free first step against one
+   process's V = 2 step, 1e-4), then NCCL at min(cards, 4) ranks (world size
+   1 on one card: 3 steps); s/step, the gradient all-reduce's ms and bytes
+   per step, rank 0's idle share, peak GiB per rank. Then two bf16
    steps with a trainable tower (MODEL.VIDEO_SWIN.FREEZE False, the module
    route under autograd): ms/step, peak memory, finite loss, the Swin
    parameters changed, and K1 / K1' launched 0 times.
@@ -1653,6 +1661,32 @@ VIDSTG_METRIC_KEYS = {f"{q}_{m}" for q in ("declar", "inter") for m in (
 VIDSTG_SIZE, VIDSTG_FRAMES = (640, 360), 200     # the synthetic videos: w x h, frames
 
 
+def write_vidstg_set(data):
+    """The synthetic VidSTG set of the data-path phases: annotations of 4
+    train videos (seed 0) and 2 test videos (seed 100), 640x360, 200 frames
+    (8 train and 4 test items), no video files."""
+    from vgqa_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    make_synthetic_dataset(data, num_videos=4, frames_per_video=VIDSTG_FRAMES,
+                           size=VIDSTG_SIZE, splits=("train",), seed=0, write_videos=False)
+    make_synthetic_dataset(data, num_videos=2, frames_per_video=VIDSTG_FRAMES,
+                           size=VIDSTG_SIZE, splits=("test",), seed=100, write_videos=False)
+
+
+def rendered_frames():
+    """A ``read_frames`` for the dataset module that serves the renderer's
+    frames of :func:`write_vidstg_set`'s videos (the card machine has no
+    video decoder), every video rendered here, in set-up, not in the steps."""
+    from vgqa_tpu_torch.data.synthetic import frame_reader
+
+    readers = {"train": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=0),
+               "test": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=100)}
+    for split, n in (("train", 4), ("test", 2)):
+        for i in range(n):
+            readers[split](f"{split}_vid{i:03d}.mp4", [0])
+    return lambda path, ids, *a, **kw: readers[os.path.basename(path).split("_")[0]](path, ids)
+
+
 def train_vidstg(dev, card):
     """Training over the VidSTG data path, as ``python -m
     vgqa_tpu_torch.tools.train`` then ``.evaluate`` run it, at full width:
@@ -1673,25 +1707,15 @@ def train_vidstg(dev, card):
     finite loss, and the evaluate tool's metric keys."""
     from vgqa_tpu_torch.config import build_default_cfg
     from vgqa_tpu_torch.data import dataset as dataset_mod
-    from vgqa_tpu_torch.data.synthetic import frame_reader, make_synthetic_dataset
     from vgqa_tpu_torch.tools import evaluate as evaluate_tool
 
     here = os.path.dirname(os.path.abspath(__file__))
     yaml_path = os.path.join(here, "configs", "grounding_vidstg.yaml")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_vidstg_", dir=here) as root:
         data, out = os.path.join(root, "data"), os.path.join(root, "out")
-        make_synthetic_dataset(data, num_videos=4, frames_per_video=VIDSTG_FRAMES,
-                               size=VIDSTG_SIZE, splits=("train",), seed=0, write_videos=False)
-        make_synthetic_dataset(data, num_videos=2, frames_per_video=VIDSTG_FRAMES,
-                               size=VIDSTG_SIZE, splits=("test",), seed=100, write_videos=False)
-        readers = {"train": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=0),
-                   "test": frame_reader(VIDSTG_FRAMES, VIDSTG_SIZE, seed=100)}
-        for split, n in (("train", 4), ("test", 2)):     # render in set-up, not in the steps
-            for i in range(n):
-                readers[split](f"{split}_vid{i:03d}.mp4", [0])
+        write_vidstg_set(data)
         real_read = dataset_mod.read_frames
-        dataset_mod.read_frames = lambda path, ids, *a, **kw: readers[
-            os.path.basename(path).split("_")[0]](path, ids)
+        dataset_mod.read_frames = rendered_frames()
         print("train_vidstg: no video decoder on this machine: the dataset reads the "
               "synthetic renderer's frames (data/synthetic.frame_reader, uncompressed) "
               "in place of video_io.read_frames")
@@ -1851,6 +1875,409 @@ def _vidstg_run(cfg, dev, card, out):
             "eval_s_item": test_s / 4, "peak_gb": peak, "train_peak_gb": train_peak,
             "launches": {k: fit_launches[k] + test_launches[k] for k in fit_launches},
             "fit_launches": fit_launches, "test_launches": test_launches}
+
+
+DDP_WORLD = 2            # gloo ranks that share card 0 in train_ddp
+DDP_TIMEOUT = 900        # seconds a rank may take (and wait in a collective) in train_ddp
+
+
+@contextlib.contextmanager
+def no_dropout():
+    """Every dropout off and every DropPath branch kept (gates 1 / keep), so
+    a step is a function of its batch alone. MODEL.VSTG.DROPOUT 0 turns off
+    the configured rates (K3's included); the text tower's, the classifier
+    blocks', the MLP heads' and the decoder queries' fixed rates and the
+    Swin's DropPath are not config keys."""
+    from vgqa_tpu_torch.ops.dropout import DropoutRng
+
+    saved = DropoutRng.dropout, DropoutRng.bernoulli
+    DropoutRng.dropout = lambda self, x, rate: x
+    DropoutRng.bernoulli = lambda self, p: torch.ones(p.shape, dtype=torch.bool, device=p.device)
+    try:
+        yield
+    finally:
+        DropoutRng.dropout, DropoutRng.bernoulli = saved
+
+
+def ddp_compare_batch(cfg, ranks):
+    """The collated synthetic videos of ``ranks`` (video r from seed r; video
+    1 is an eighth of the clip short, so the valid-frame counts differ)."""
+    from vgqa_tpu_torch.data.collate import collate
+    from vgqa_tpu_torch.data.synthetic_batch import synthetic_sample
+    from vgqa_tpu_torch.data.tokenizer import build_tokenizer
+
+    samples = []
+    for r in ranks:
+        s = synthetic_sample(cfg, seed=r)
+        if r == 1:
+            cut = len(s["frames"]) - max(1, len(s["frames"]) // 8)
+            s = {**s, "frames": s["frames"][:cut], "actioness": s["actioness"][:cut]}
+        samples.append(s)
+    return collate(samples, build_tokenizer(cfg.MODEL.TEXT_MODEL.VOCAB_DIR),
+                   cfg.INPUT.TRAIN_SAMPLE_NUM, cfg.INPUT.MAX_QUERY_LEN, cfg.DATASET.APP_NUM,
+                   cfg.DATASET.MOT_NUM)
+
+
+def ddp_first_step(cfg, dev, ranks):
+    """The metrics of one dropout-free step from the seeded initialization
+    (seed 0) on the videos ``ranks``, averaged over the data-parallel group
+    (each rank passes its own video; one process passes both, V = 2)."""
+    from vgqa_tpu_torch.data.collate import batch_to
+    from vgqa_tpu_torch.parallel.distributed import reduce_mean
+    from vgqa_tpu_torch.training.trainer import Trainer
+
+    with no_dropout():
+        trainer = Trainer(cfg, device=dev, seed=0)
+        trainer.setup(max_iter=4)
+        b = batch_to(ddp_compare_batch(cfg, ranks), dev)
+        out = reduce_mean(trainer.step_fn(trainer.state, b["video"], b["text"], b["targets"],
+                                          seed=0))
+    del trainer, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_rank(rank, world, port, backend, device, job, queue):
+    """One rank of :func:`train_ddp`, in a spawned process: its result, or
+    its traceback before it re-raises, goes to ``queue``."""
+    try:
+        queue.put((rank, _ddp_rank_run(rank, world, port, backend, device, job)))
+    except BaseException:
+        import traceback
+
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _ddp_rank_run(rank, world, port, backend, device, job):
+    import hashlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgqa_tpu_torch.config import build_default_cfg
+    from vgqa_tpu_torch.data import dataset as dataset_mod
+    from vgqa_tpu_torch.parallel import distributed
+    from vgqa_tpu_torch.tools import train as train_tool
+    from vgqa_tpu_torch.training.trainer import Trainer
+
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(key, None)
+    os.environ.update(VGQA_COORDINATOR=f"localhost:{port}", VGQA_NUM_PROCESSES=str(world),
+                      VGQA_PROCESS_ID=str(rank), VGQA_SHUTDOWN_TIMEOUT=str(DDP_TIMEOUT))
+    for key in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):    # every rank on this host
+        os.environ.setdefault(key, "lo")
+    dataset_mod.read_frames = rendered_frames()
+    distributed.initialize_multihost(backend=backend, device=device)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "world": distributed.get_world_size(), "device": str(dev)}
+    if job["compare"]:
+        cfg = build_default_cfg()
+        cfg.merge_from_file(job["yaml"])
+        cfg.merge_from_list(job["opts"] + ["MODEL.VSTG.DROPOUT", "0.0", "OUTPUT_DIR", ""])
+        cfg.freeze()
+        out["first_step"] = ddp_first_step(cfg, dev, [rank])
+
+    seen, marks, reduces, saved = {}, {}, [], []
+    if rank == 0:         # the profiler's first session in a process is slow: not in the step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    real = (Trainer.setup, Trainer.fit, Trainer.test, distributed.average_gradients,
+            torch.save)
+
+    def setup(self, *a, **kw):
+        """The trainer's setup; its step synchronised before step 2 and
+        before and after the last step, which rank 0 profiles."""
+        real[0](self, *a, **kw)
+        seen["trainer"] = self
+        step_fn, last = self.step_fn, self.max_iter - 1
+
+        def step(state, *args, **kwargs):
+            done = state.step
+            if done in (1, last):
+                if done == last and rank == 0:
+                    prof.__enter__()         # its start-up outside the window
+                torch.cuda.synchronize()
+                marks[done] = time.perf_counter()
+            metrics = step_fn(state, *args, **kwargs)
+            if done == last:
+                torch.cuda.synchronize()
+                marks["end"] = time.perf_counter()
+                if rank == 0:
+                    prof.__exit__(None, None, None)
+            return metrics
+
+        step.loss_and_grads = step_fn.loss_and_grads
+        self.step_fn = step
+
+    def fit(self, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        logged = real[1](self, *a, **kw)
+        torch.cuda.synchronize()
+        seen.update(fit_launches=read_launches(), logged=logged,
+                    train_peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return logged
+
+    def test(self):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        seen["metrics"] = real[2](self)
+        torch.cuda.synchronize()
+        seen.update(test_launches=read_launches(), test_s=time.perf_counter() - t0)
+        return seen["metrics"]
+
+    def average_gradients(params, *a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        n = real[3](params, *a, **kw)
+        end.record()
+        reduces.append((start, end, n))
+        return n
+
+    def save(obj, f, *a, **kw):
+        saved.append(os.path.basename(str(f)))
+        return real[4](obj, f, *a, **kw)
+
+    Trainer.setup, Trainer.fit, Trainer.test = setup, fit, test
+    distributed.average_gradients, torch.save = average_gradients, save
+    argv = ["--config-file", job["yaml"], *(["--device", device] if device else []),
+            *(["--skip-test"] if job["skip_test"] else []), *job["opts"]]
+    try:
+        out["code"] = train_tool.main(argv)
+    finally:
+        Trainer.setup, Trainer.fit, Trainer.test = real[:3]
+        distributed.average_gradients, torch.save = real[3:]
+    trainer = seen.pop("trainer")
+    torch.cuda.synchronize()
+    last = trainer.max_iter - 1
+    h = hashlib.sha256()
+    for t in [*trainer.state.model.parameters(), *trainer.state.ema.values()]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    if rank == 0:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, -1.0
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        wall_ms = 1e3 * (marks["end"] - marks[last])
+        out.update(profiled_busy_ms=busy / 1e3, profiled_wall_ms=wall_ms,
+                   idle_share=1 - busy / 1e3 / wall_ms, profiled_kernels=len(spans))
+    out.update(seen, max_iter=trainer.max_iter, final_step=trainer.state.step,
+               saved=saved, digest=h.hexdigest(),
+               # steps 2 .. max_iter - 1, or the profiled step alone when there are 2
+               s_step=((marks[last] - marks[1]) / (last - 1) if last > 1
+                       else marks["end"] - marks[last]),
+               allreduce_ms=[s.elapsed_time(e) for s, e, _ in reduces],
+               allreduce_bytes=[n for _, _, n in reduces],
+               peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del trainer
+    distributed.destroy()
+    return out
+
+
+def run_ranks(world, backend, device, job):
+    """:func:`_ddp_rank` in ``world`` spawned processes (the parent holds a
+    CUDA context, so not forked); their results in rank order. A rank that
+    fails, exits without a result or outlasts DDP_TIMEOUT fails the phase,
+    and every rank is stopped."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    ctx = multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_ddp_rank, args=(r, world, port, backend, device, job, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.time() + DDP_TIMEOUT
+    try:
+        while len(results) < world:
+            try:
+                rank, res = queue.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)
+                        and r not in results]
+                if dead or time.time() > deadline:
+                    raise AssertionError(f"train_ddp ({backend}): ranks {dead} exited "
+                                         f"without a result, or the run passed "
+                                         f"{DDP_TIMEOUT} s") from None
+                continue
+            if "error" in res:
+                raise AssertionError(f"train_ddp ({backend}) rank {rank} failed:\n{res['error']}")
+            results[rank] = res
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"train_ddp ({backend}): exit codes {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(world)]
+
+
+def _check_ddp_run(ranks, name, steps, test_items, skip_test):
+    """The checks every data-parallel run of ``steps`` steps must pass (see
+    :func:`train_ddp`); returns the launches summed over its ranks."""
+    world = len(ranks)
+    want_fit = {"swin_block_canvas": 12 * steps, "swin_block_fused": 0, "window_attention": 0,
+                "flash_mha_train.fwd": 6 * steps, "flash_mha_train.bwd": 6 * steps,
+                "flash_mha": 0, "flash_gqa_causal": 0, "int4_matmul": 0}
+    halves = 0 if skip_test else 2 * -(-test_items // world)
+    want_test = {**{k: 0 for k in want_fit}, "swin_block_canvas": 12 * halves,
+                 "window_attention": 6 * halves}
+    for r in ranks:
+        tag = f"{name} rank {r['rank']}"
+        if (r["code"], r["world"], r["max_iter"], r["final_step"]) != (0, world, steps, steps):
+            raise AssertionError(f"{tag}: code/world/max_iter/final step {r['code']}, "
+                                 f"{r['world']}, {r['max_iter']}, {r['final_step']}; want "
+                                 f"0, {world}, {steps}, {steps}")
+        if r["fit_launches"] != want_fit:
+            raise AssertionError(f"{tag}: expected 12 K1 / 6 + 6 K3 per step, got "
+                                 f"{r['fit_launches']}")
+        if not skip_test and r["test_launches"] != want_test:
+            raise AssertionError(f"{tag}: expected 12 K1 / 6 K2 per eval half-pass "
+                                 f"({halves}), got {r['test_launches']}")
+        if not np.isfinite(r["logged"][-1]["loss"]):
+            raise AssertionError(f"{tag}: non-finite loss {r['logged'][-1]}")
+        if r["saved"] != ([] if r["rank"] else ["model_final.tmp", "model_final_params.tmp"]):
+            raise AssertionError(f"{tag}: wrote {r['saved']} (rank 0 writes model_final and "
+                                 "model_final_params once, the others nothing)")
+        if len(r["allreduce_ms"]) != steps:
+            raise AssertionError(f"{tag}: {len(r['allreduce_ms'])} gradient all-reduces in "
+                                 f"{steps} steps")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError(f"{name}: the ranks' parameters and EMA differ after the last "
+                             f"step: {[r['digest'][:12] for r in ranks]}")
+    if not skip_test:
+        metrics = ranks[0]["metrics"]
+        if set(metrics) != VIDSTG_METRIC_KEYS or not all(np.isfinite(list(metrics.values()))):
+            raise AssertionError(f"{name}: test printed {sorted(metrics)}")
+        if any(r["metrics"] != metrics for r in ranks):
+            raise AssertionError(f"{name}: the merged metrics differ between ranks")
+    return {k: sum(r["fit_launches"][k] + (0 if skip_test else r["test_launches"][k])
+                   for r in ranks) for k in want_fit}
+
+
+def _ddp_line(ranks, name, card):
+    r0 = ranks[0]
+    steps = [r["s_step"] for r in ranks]
+    ar = [statistics.median(r["allreduce_ms"]) for r in ranks]
+    print(f"train_ddp {name}, world {len(ranks)} (configs/grounding_vidstg.yaml, f32 64f@420, "
+          f"V = 1 per rank): s/step per rank {[round(s, 3) for s in steps]} ("
+          + (f"steps 2 to {r0['max_iter'] - 1}, synchronised at the ends" if r0["max_iter"] > 2
+             else "the profiled last step") + "); gradient all-reduce "
+          f"per step (CUDA events around average_gradients, median per rank) "
+          f"{[round(x, 3) for x in ar]} ms; bytes all-reduced per step "
+          f"{r0['allreduce_bytes'][0]} (+ 8 for the loss's counts); rank 0's profiled last step: "
+          f"busy {r0['profiled_busy_ms']:.1f} of {r0['profiled_wall_ms']:.1f} ms, idle share "
+          f"{r0['idle_share']:.3f} ({r0['profiled_kernels']} kernels, its own only); peak GiB "
+          f"per rank {[round(r['peak_gb'], 2) for r in ranks]} (train "
+          f"{[round(r['train_peak_gb'], 2) for r in ranks]}); devices "
+          f"{[r['device'] for r in ranks]}  [{card}]")
+
+
+def run_nccl(world, yaml_path, common, root):
+    """The train tool over NCCL at ``world`` ranks, one card each: at world
+    size 1, 3 steps (DATA_TRUNK 3, no test; the rendezvous, the warm-up and
+    the all-reduces); above, 2 epochs of the 8 train items and the merged
+    test. Returns ((results, name, steps), seconds)."""
+    opts = common + ["OUTPUT_DIR", tempfile.mkdtemp(prefix=f"nccl{world}_", dir=root)]
+    if world == 1:
+        opts, steps = opts + ["DATA_TRUNK", "3"], 3
+    else:
+        opts, steps = opts + ["SOLVER.MAX_EPOCH", "2"], 2 * -(-8 // world)
+    t0 = time.perf_counter()
+    ranks = run_ranks(world, "nccl", None, {"yaml": yaml_path, "compare": False,
+                                            "skip_test": world == 1, "opts": opts})
+    return (ranks, "nccl", steps), time.perf_counter() - t0
+
+
+def train_ddp(dev, card):
+    """Data-parallel training over the VidSTG data path, as ``python -m
+    torch.distributed.run --nproc_per_node N -m vgqa_tpu_torch.tools.train``
+    runs it: configs/grounding_vidstg.yaml as the file leaves it (float32,
+    64f@420, 8 loader threads, random weights from seed 0) over
+    :func:`write_vidstg_set`'s set (frames from the renderer), each rank a
+    spawned process that sets the ``VGQA_*`` contract, joins the group and
+    calls ``tools.train.main``.
+
+    1. Two ranks on card 0 over gloo (NCCL takes one rank per card): first
+       one dropout-free step from the seeded weights, each rank on its own
+       synthetic video; then the train tool: 4 steps at a global batch of 2
+       (8 items), ``test`` on the 4 test items, merged. Checks: exact K1 /
+       K3 launches per step and K1 / K2 per eval half-pass on every rank, a
+       finite loss, the ranks' parameters and EMA bit-equal after the last
+       step, ``model_final`` and ``model_final_params`` written once (rank
+       0), the merged metrics equal on both ranks with the evaluate tool's
+       18 keys, and the first step's loss and gradient norm (the group's
+       mean) within 1e-4 (relative) of one process's step on both videos
+       as V = 2 from the same weights. Two ranks sharing one card is no
+       scaling figure.
+    2. NCCL on min(cards, 4) cards (:func:`run_nccl`): on one card, world
+       size 1 for 3 steps (no test): the rendezvous, the warm-up and the
+       all-reduces; on more, 2 epochs and the merged test, with the checks
+       of 1 but the comparison.
+    Prints s/step per rank, the gradient all-reduce's ms per step (CUDA
+    events), the bytes all-reduced per step, rank 0's idle share over its
+    profiled last step and the peak GiB per rank."""
+    from vgqa_tpu_torch.config import build_default_cfg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    yaml_path = os.path.join(here, "configs", "grounding_vidstg.yaml")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_", dir=here) as root:
+        data = os.path.join(root, "data")
+        write_vidstg_set(data)
+        common = ["DATA_DIR", data, "TENSORBOARD_DIR", ""]
+        t0 = time.perf_counter()
+        gloo = run_ranks(DDP_WORLD, "gloo", "cuda:0", {
+            "yaml": yaml_path, "compare": True, "skip_test": False,
+            "opts": common + ["OUTPUT_DIR", os.path.join(root, "gloo")]})
+        gloo_s = time.perf_counter() - t0
+        launches = _check_ddp_run(gloo, "gloo", 4, 4, skip_test=False)
+        _ddp_line(gloo, "gloo, 2 ranks sharing card 0 (no scaling figure)", card)
+        print(f"train_ddp gloo: {gloo_s:.1f} s for both ranks' set-up, comparison step, 4 "
+              f"steps, test and checkpoints; test {gloo[0]['test_s']:.1f} s (2 items per rank, "
+              f"merged); metrics (random weights, equal on both ranks): "
+              f"{json.dumps(gloo[0]['metrics'])}")
+
+        cards = torch.cuda.device_count()
+        nccl, nccl_s = run_nccl(min(cards, 4), yaml_path, common, root)
+        nccl_launches = _check_ddp_run(*nccl, 4, skip_test=len(nccl[0]) == 1)
+        _ddp_line(nccl[0], f"nccl on {len(nccl[0])} of {cards} card(s)", card)
+        print(f"train_ddp nccl ran at world size {len(nccl[0])} ({cards} card(s) visible): "
+              f"{nccl_s:.1f} s")
+
+    cfg = build_default_cfg()
+    cfg.merge_from_file(yaml_path)
+    cfg.merge_from_list(["MODEL.VSTG.DROPOUT", "0.0", "TENSORBOARD_DIR", "", "OUTPUT_DIR", ""])
+    cfg.freeze()
+    single = ddp_first_step(cfg, dev, list(range(DDP_WORLD)))
+    group = gloo[0]["first_step"]
+    rel = {k: abs(group[k] - single[k]) / max(abs(single[k]), 1e-30)
+           for k in ("loss", "grad_norm")}
+    print(f"train_ddp first step, dropout off: 2 gloo ranks (V = 1 each, the group's mean) "
+          f"loss {group['loss']:.6f}, grad norm {group['grad_norm']:.6f}; one process V = 2 "
+          f"loss {single['loss']:.6f}, grad norm {single['grad_norm']:.6f}; relative "
+          f"differences {rel['loss']:.2e} / {rel['grad_norm']:.2e} (limit 1e-4)  [{card}]")
+    if any(gloo[1]["first_step"][k] != group[k] for k in ("loss", "grad_norm")):
+        raise AssertionError("the first step's group mean differs between the ranks")
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"dp = 2 first step vs one process V = 2: {rel}")
+    return {"gloo": gloo, "nccl": nccl[0], "nccl_world": len(nccl[0]), "rel": rel,
+            "launches": {k: launches[k] + nccl_launches[k] for k in launches}}
 
 
 def qa_row(name, replaces, launches, unit_rows, repeat, all_rows):
@@ -2555,6 +2982,7 @@ def main() -> int:
     tr420 = phase(train_420)
     tr32 = phase(train_f32)
     vidstg = phase(train_vidstg)
+    ddp = phase(train_ddp)
     tr_swin = phase(train_trainable)
     qa = phase(serve_qa)
     http = phase(serve_http)
@@ -2565,6 +2993,7 @@ def main() -> int:
                                         http["qa_launches"], http["gen_launches"]))
               for k in http["qa_launches"]}
     vl = vidstg["launches"]
+    dl = ddp["launches"]
 
     k1_fwd = sum(r["ms"] * r["per_fwd"] for r in k1_rows)
     k1_plain = sum(r["plain_ms"] * r["per_fwd"] for r in k1_rows)
@@ -2577,7 +3006,8 @@ def main() -> int:
     k3_launches = {d: tr["launches"][f"flash_mha_train.{d}"]
                    + tr420["launches"][f"flash_mha_train.{d}"]
                    + tr32["launches"][f"flash_mha_train.{d}"]
-                   + vl[f"flash_mha_train.{d}"] for d in ("fwd", "bwd")}
+                   + vl[f"flash_mha_train.{d}"] + dl[f"flash_mha_train.{d}"]
+                   for d in ("fwd", "bwd")}
     f32_k1, f32_k2 = f32_rows["k1"], f32_rows["k2"]
     f32_k3 = {r["rate"]: r for r in f32_rows["k3"]}
     k4 = k4_rows[0]
@@ -2618,12 +3048,13 @@ def main() -> int:
          "replaces": "vgqa_tpu/ops/pallas/swin_block.py:388",
          "launches": serve_launches["swin_block_canvas"] + tr["launches"]["swin_block_canvas"]
          + tr420["launches"]["swin_block_canvas"] + tr32["launches"]["swin_block_canvas"]
-         + vl["swin_block_canvas"],
+         + vl["swin_block_canvas"] + dl["swin_block_canvas"],
          "launches_by_path": {"serve": serve_launches["swin_block_canvas"],
                               "train": tr["launches"]["swin_block_canvas"],
                               "train_420": tr420["launches"]["swin_block_canvas"],
                               "train_f32": tr32["launches"]["swin_block_canvas"],
-                              "train_vidstg": vl["swin_block_canvas"], "qa": 0},
+                              "train_vidstg": vl["swin_block_canvas"],
+                              "train_ddp": dl["swin_block_canvas"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows + k1_train_rows),
          "ms": k1_fwd, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": k1_device, "gemm_device_ms": k1_phase["gemm"],
@@ -2657,10 +3088,11 @@ def main() -> int:
                    "(float32)",
          "replaces": "vgqa_tpu/ops/pallas/window_attention.py:85",
          "launches": serve_launches["window_attention"] + tr["launches"]["window_attention"]
-         + vl["window_attention"],
+         + vl["window_attention"] + dl["window_attention"],
          "launches_by_path": {"serve": serve_launches["window_attention"],
                               "train": tr["launches"]["window_attention"],
-                              "train_vidstg": vl["window_attention"], "qa": 0},
+                              "train_vidstg": vl["window_attention"],
+                              "train_ddp": dl["window_attention"], "qa": 0},
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          "ms": 6 * k2["ms"], "plain_ms": 6 * k2["plain_ms"], "bound_ms": 6 * k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": 6 * k2["library_ms"],
@@ -2685,7 +3117,9 @@ def main() -> int:
                               "train_f32": tr32["launches"]["flash_mha_train.fwd"]
                               + tr32["launches"]["flash_mha_train.bwd"],
                               "train_vidstg": vl["flash_mha_train.fwd"]
-                              + vl["flash_mha_train.bwd"]},
+                              + vl["flash_mha_train.bwd"],
+                              "train_ddp": dl["flash_mha_train.fwd"]
+                              + dl["flash_mha_train.bwd"]},
          "launches_by_direction": k3_launches,
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          "ms": 6 * (k3["fwd_ms"] + k3["bwd_ms"]), "plain_ms": 6 * k3["plain_ms"],
@@ -2781,7 +3215,9 @@ def main() -> int:
           f"({vidstg['s_step_unprofiled']:.3f} over 3-6 unprofiled), loader wait "
           f"{vidstg['loader_wait_s']:.3f} s/step, idle share {vidstg['idle_share']:.3f}, eval "
           f"{vidstg['eval_s_item']:.3f} s/test item, peak {vidstg['peak_gb']:.2f} GiB, "
-          f"launches over 8 steps + test + the evaluate tool; at 64f@420 "
+          f"launches over 8 steps + test + the evaluate tool; train_ddp (the same path, "
+          f"data-parallel): launches summed over its ranks, 2 gloo ranks on card 0 (4 steps "
+          f"+ test each) and NCCL at world size {ddp['nccl_world']}; at 64f@420 "
           f"{tr420['ms_step']:.1f} ms, peak {tr420['peak_gb']:.2f} GiB, K3 device "
           f"{tr420['k3_device_ms']:.3f} ms per step; K1' launches over the tower's blocks "
           "route; Swin-T "

@@ -927,3 +927,36 @@ def test_tiny_qa_chats_with_kernel_routes_cuda(cuda, dtype):
         assert ran == (0, 0)
     else:
         assert ran[0] > 0 and ran[1] > 0
+
+
+def _two_ranks_on_card_0(tmp_path, backend):
+    """The ``card`` job of ``tests/torch_ddp_worker.py`` in 2 processes (the
+    ``VGQA_*`` contract, ``test_torch_parallel.launch``), both on card 0."""
+    import os
+
+    from test_torch_parallel import collect, launch
+
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "grounding_vidstg_tiny.yaml")
+    return collect(*launch("card", {"backend": backend, "device": "cuda:0", "config": config},
+                           tmp_path))
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_stay_bit_equal_cuda(cuda, tmp_path):
+    """Two gloo ranks on card 0, each on its own video of the tiny config, K3
+    on: 2 steps (4 + 4 K3 launches each: 2 encoder layers x 2 steps, the
+    forward and the backward), the logged losses the group's mean (equal on
+    both), bit-equal parameters that moved."""
+    r0, r1 = _two_ranks_on_card_0(tmp_path, "gloo")
+    assert r0["after"] == r1["after"] != r0["before"] == r1["before"]
+    assert r0["losses"] == r1["losses"] and np.isfinite(r0["losses"]).all()
+    assert r0["k3"] == r1["k3"] == [4, 4]
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card_cuda(cuda, tmp_path):
+    """NCCL with both ranks on card 0 raises the port's message from the
+    rendezvous, before any collective."""
+    for r in _two_ranks_on_card_0(tmp_path, "nccl"):
+        assert "share one card" in r["error"] and "backend='gloo'" in r["error"]

@@ -199,8 +199,10 @@ def make_data_loader(
     pin_memory: bool = False,
 ) -> IterationBasedLoader:
     """The reference's make_data_loader: one video per device per step (the
-    reference requires SOLVER.BATCH_SIZE 1); the global batch is the number
-    of devices that train together (1 here)."""
+    reference requires SOLVER.BATCH_SIZE 1); ``global_batch`` is the number
+    of cards that train together, the data-parallel world size (the
+    trainer and ``tools/evaluate`` pass it, as the JAX tool passes its
+    ``dp``; default 1), of which each process materialises its slice."""
     from .dataset import build_dataset
 
     if mode not in ("train", "val", "test"):

@@ -6,10 +6,11 @@ summed over the predicted span's frames, over the union of the predicted
 and ground-truth spans), vIoU@{0.3, 0.5}, gt_vIoU(@R), keyframe
 precision/recall, averaged per question type (declar / inter).
 
-One process holds every prediction. Merging them across processes (the
-reference's all_gather of pickled dicts) belongs to the parallelism slice
-(ROADMAP Queue 1 item 9): with more than one process
-``synchronize_between_processes`` raises.
+Under data parallelism each process evaluates its slice of the test split;
+``synchronize_between_processes`` gathers every process's predictions
+(``parallel.distributed.all_gather_objects``, a JSON round-trip, where the
+reference all_gathers pickled dicts) and merges them by item id, so every
+process summarizes all items, each once.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
+from ...parallel.distributed import all_gather_objects, get_world_size, is_main_process
 from ...utils.boxes import np_box_iou
 from ..annotations import load_eval_annotations
 
@@ -154,16 +155,19 @@ class VidSTGEvaluator:
         self.video_predictions.update(video_predictions)
 
     def synchronize_between_processes(self):
-        """Merge the predictions of every process: nothing to do on one. With
-        more than one (an initialised ``torch.distributed`` group) it raises:
-        the gather is ported with the parallelism slice (ROADMAP Queue 1
-        item 9), and ``_merge_gathered`` folds in what it gathers."""
-        dist = torch.distributed
-        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
+        """Merge the predictions of every process of a data-parallel group
+        into each (nothing to do on one). The payloads are gathered with
+        their sizes first, so a whole split's predictions gather at any
+        size."""
+        if get_world_size() <= 1:
             return
-        raise NotImplementedError(
-            "merging VidSTG predictions across processes is not ported yet "
-            "(ROADMAP Queue 1 item 9, parallelism)")
+        gathered = all_gather_objects({
+            "predictions": self.predictions,
+            "att": self.att_predictions,
+            "video": self.video_predictions,
+            "kf": self.kf_pred,
+        })
+        self._merge_gathered(gathered)
 
     def _merge_gathered(self, gathered):
         """Fold JSON-round-tripped payload dicts from every process back into
@@ -212,7 +216,7 @@ class VidSTGEvaluator:
                 f"{q} {k}: {metrics[q][k]:.4f}" for q in metrics for k in metrics[q]
             )
             self.logger.info("=" * 60 + "\n" + lines + "\n" + "=" * 60)
-        if self.save_pred and self.save_dir:
+        if self.save_pred and self.save_dir and is_main_process():
             os.makedirs(self.save_dir, exist_ok=True)
             with open(os.path.join(self.save_dir, "test_results.json"), "w") as f:
                 json.dump(

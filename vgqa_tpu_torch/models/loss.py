@@ -6,9 +6,15 @@ valid where ``actioness``; ``actioness`` [V, T] 0/1; ``time_mask`` [V, T]
 bool; ``sted`` [V, 2] int start/end frames; ``attr_labels`` [V, APP] and
 ``verb_labels`` [V, MOT] multi-hot. Every term is computed in float32.
 
-``num_boxes`` is the count of this process's boxes: the JAX package sums it
-over data-parallel shards with ``psum``; its ``all_reduce`` here waits for
-data parallelism (ROADMAP item 13).
+Under data parallelism (an initialised ``torch.distributed`` group of W
+processes, each with its slice of the global batch), the box count and the
+valid-frame count are summed over the group, and each process divides its
+own sums by ``max(count_global, 1) / W``: the gradient average over the W
+processes then equals the gradient of the JAX package's loss on the whole
+global batch, ``S_global / max(count_global, 1)``. (The reference's
+``max(N_global / W, 1)`` differs from it when ``N_global < W``.) The mean
+terms need no change: every process holds the same number of videos. With
+no group, or W = 1, the counts are this process's.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel.distributed import all_reduce_, get_world_size
 from ..utils.boxes import box_cxcywh_to_xyxy, paired_generalized_box_iou
 
 
@@ -28,8 +35,13 @@ def _bce_logits(logits, targets, weight=None):
     return loss
 
 
-def _num_boxes(actioness, time_mask):
-    return (actioness * time_mask).sum().clamp(min=1.0)
+@torch.no_grad()
+def _normalisers(actioness, time_mask):
+    """(boxes, valid frames): each count summed over the data-parallel
+    group, clamped at 1, over the world size (see the module docstring)."""
+    counts = all_reduce_(torch.stack([(actioness * time_mask).sum(), time_mask.sum()]))
+    counts = counts.clamp(min=1.0) / get_world_size()
+    return counts[0], counts[1]
 
 
 class VideoSTGLoss:
@@ -43,7 +55,7 @@ class VideoSTGLoss:
                                  "logits_r_a", "logits_r_m", "actioness"]
         self.use_aux_loss = use_aux_loss
 
-    def loss_boxes(self, outputs, targets, num_boxes):
+    def loss_boxes(self, outputs, targets, num_boxes, num_frames):
         """L1 + GIoU over the frames of the ground-truth span."""
         m = ((targets["actioness"] > 0) & targets["time_mask"]).float()
         pred = outputs["pred_boxes"].float()
@@ -53,7 +65,7 @@ class VideoSTGLoss:
         return {"loss_bbox": l1.sum() / num_boxes,
                 "loss_giou": ((1.0 - giou) * m).sum() / num_boxes}
 
-    def loss_sted(self, outputs, targets, num_boxes):
+    def loss_sted(self, outputs, targets, num_boxes, num_frames):
         """KL divergence against quantized Gaussian start/end targets."""
         sted = outputs["pred_sted"].float()                  # [V, T, 2]
         tm = targets["time_mask"]
@@ -73,7 +85,7 @@ class VideoSTGLoss:
         loss = kl(sted[..., 0], targets["sted"][:, 0]) + kl(sted[..., 1], targets["sted"][:, 1])
         return {"loss_sted": loss.sum() / (V * T)}
 
-    def loss_actioness(self, outputs, targets, num_boxes):
+    def loss_actioness(self, outputs, targets, num_boxes, num_frames):
         """Foreground-weighted BCE."""
         pred = outputs["pred_actioness"][..., 0].float()
         act = targets["actioness"].float()
@@ -83,28 +95,29 @@ class VideoSTGLoss:
         weight = torch.where(inside, 1.0, self.eos_coef)
         return {"loss_actioness": (_bce_logits(pred, act, weight) * tm).mean()}
 
-    def _temporal_bce(self, logits, targets):
+    def _temporal_bce(self, logits, targets, num_frames):
         act = targets["actioness"].float()
         tm = targets["time_mask"].float()
         loss = _bce_logits(logits.float(), act) * tm
-        return loss.sum() / tm.sum().clamp(min=1.0)
+        return loss.sum() / num_frames
 
-    def loss_logits_f_m(self, outputs, targets, num_boxes):
-        return {"logits_f_m": self._temporal_bce(outputs["logits_f_m"], targets)}
+    def loss_logits_f_m(self, outputs, targets, num_boxes, num_frames):
+        return {"logits_f_m": self._temporal_bce(outputs["logits_f_m"], targets, num_frames)}
 
-    def loss_logits_f_a(self, outputs, targets, num_boxes):
-        return {"logits_f_a": self._temporal_bce(outputs["logits_f_a"], targets)}
+    def loss_logits_f_a(self, outputs, targets, num_boxes, num_frames):
+        return {"logits_f_a": self._temporal_bce(outputs["logits_f_a"], targets, num_frames)}
 
-    def loss_logits_r_a(self, outputs, targets, num_boxes):
+    def loss_logits_r_a(self, outputs, targets, num_boxes, num_frames):
         return {"logits_r_a": _bce_logits(outputs["logits_r_a"].float(),
                                           targets["attr_labels"].float()).mean()}
 
-    def loss_logits_r_m(self, outputs, targets, num_boxes):
+    def loss_logits_r_m(self, outputs, targets, num_boxes, num_frames):
         return {"logits_r_m": _bce_logits(outputs["logits_r_m"].float(),
                                           targets["verb_labels"].float()).mean()}
 
     def __call__(self, outputs: Dict, targets: Dict) -> Dict[str, torch.Tensor]:
-        num_boxes = _num_boxes(targets["actioness"].float(), targets["time_mask"].float())
+        num_boxes, num_frames = _normalisers(targets["actioness"].float(),
+                                             targets["time_mask"].float())
         term_map = {
             "boxes": self.loss_boxes,
             "sted": self.loss_sted,
@@ -116,14 +129,14 @@ class VideoSTGLoss:
         }
         losses: Dict[str, torch.Tensor] = {}
         for name in self.losses:
-            losses.update(term_map[name](outputs, targets, num_boxes))
+            losses.update(term_map[name](outputs, targets, num_boxes, num_frames))
         if self.use_aux_loss and "aux_outputs" in outputs:
             for i, aux in enumerate(outputs["aux_outputs"]):
                 # the logits_* heads are not per decoder layer
                 for name in self.losses:
                     if name.startswith("logits"):
                         continue
-                    for k, v in term_map[name](aux, targets, num_boxes).items():
+                    for k, v in term_map[name](aux, targets, num_boxes, num_frames).items():
                         losses[f"{k}_{i}"] = v
         return losses
 

@@ -6,18 +6,34 @@ seed: one on the device, for dropout masks and DropPath gates (so no mask
 crosses from the host), and one on the CPU, from which each call of the
 K3 kernel draws its int32 seed (an int on the host, so no device sync).
 A forward that receives ``rng=None`` is deterministic (eval mode).
+
+Under data parallelism each process folds its rank into both seeds, so the
+videos of different ranks get different masks, as the videos of one global
+batch do in the JAX package; rank 0 draws what a single process draws.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Tuple
 
 import torch
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """``seed`` with the data-parallel ``rank`` folded in: rank 0 keeps
+    ``seed``; another rank takes 62 bits of a hash of both, so its low 32
+    bits (all the CPU generator reads) differ too."""
+    if rank == 0:
+        return int(seed)
+    digest = hashlib.sha256(f"{int(seed)}/{int(rank)}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 2
+
+
 class DropoutRng:
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, rank: int = 0):
         device = torch.device(device)
+        seed = rank_seed(seed, rank)
         self.host = torch.Generator().manual_seed(int(seed))
         self.device = torch.Generator(device=device).manual_seed(int(seed) + 1)
 

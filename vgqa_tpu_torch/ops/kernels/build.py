@@ -6,7 +6,10 @@ through ``ctypes``. The build happens at first use, into
 ``csrc/build/`` (git-ignored), under a name keyed by the sources' hash, so
 an edited source rebuilds and an unchanged one loads at once. Nothing here
 runs at import time: the CPU tests import every module of the package on a
-host without ``nvcc``.
+host without ``nvcc``. In a data-parallel group rank 0 builds while the
+other ranks wait at a barrier, then every rank loads the library (a rank
+that still finds no library, on a host that does not share rank 0's file
+system, builds its own).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import shutil
 import subprocess
 import time
 from typing import Optional
+
+from ...parallel.distributed import is_main_process, synchronize
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
@@ -133,6 +138,9 @@ def load_library() -> ctypes.CDLL:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"libvgqa_kernels_{h.hexdigest()[:16]}.so")
+    if is_main_process() and not os.path.exists(path):
+        _compile(sources, arch, path)
+    synchronize()
     if not os.path.exists(path):
         _compile(sources, arch, path)
     build_log["path"] = path

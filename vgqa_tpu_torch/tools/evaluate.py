@@ -13,6 +13,12 @@ initialization, with a warning. The model is ``inference/grounding.
 load_model``'s in float32, as the JAX tool's is, under the port's float32
 policy (``utils/device.apply_precision_policy``: TF32 off in cuBLAS and
 cuDNN). Runs on the card unless ``--device cpu``.
+
+Started as N processes (``python -m torch.distributed.run --nproc_per_node
+N -m vgqa_tpu_torch.tools.evaluate ...``, or the ``VGQA_*`` contract of
+``parallel/distributed.py``), each rank evaluates its slice of the split on
+its own card and the predictions are merged; rank 0 prints the metrics of
+all items.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from ..config import build_default_cfg
 from ..data.loader import make_data_loader
 from ..data.metrics import build_evaluator
 from ..inference.grounding import load_model
+from ..parallel.distributed import (destroy, get_rank, get_world_size, initialize_multihost,
+                                    is_main_process)
 from ..training.evaluator import do_eval
 from ..utils.log_setup import setup_logger
 
@@ -37,6 +45,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
+    formed = initialize_multihost(device=args.device)      # before any CUDA call
 
     cfg = build_default_cfg()
     if args.config_file:
@@ -44,7 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg.merge_from_list(args.opts or [])
     cfg.freeze()
 
-    logger = setup_logger("Video Grounding Eval", cfg.OUTPUT_DIR)
+    logger = setup_logger("Video Grounding Eval", cfg.OUTPUT_DIR, rank=get_rank())
     weight = cfg.MODEL.WEIGHT_EVAL or cfg.MODEL.WEIGHT
     if not (weight and os.path.exists(weight)):
         logger.warning("No eval checkpoint found; evaluating random init")
@@ -57,10 +66,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if weight:
         logger.info(f"Loaded eval weights from {weight}")
     model = loaded.model
-    loader = make_data_loader(cfg, "test", pin_memory=loaded.device.type == "cuda")
+    loader = make_data_loader(cfg, "test", global_batch=get_world_size(),
+                              pin_memory=loaded.device.type == "cuda")
     evaluator = build_evaluator(cfg, logger, mode="test", save_pred=args.save_pred)
     results = do_eval(cfg, "test", logger, model, loader, evaluator)
-    print(json.dumps(results, indent=2, default=float))
+    if is_main_process():
+        print(json.dumps(results, indent=2, default=float))
+    if formed:
+        destroy()
     return 0
 
 

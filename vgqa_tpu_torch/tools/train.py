@@ -11,8 +11,19 @@ float32). Writes ``OUTPUT_DIR/config.yml``, the log, ``model_final`` (the
 resumable train state) and ``model_final_params`` (the model's state dict,
 the EMA weights when ``MODEL.EMA`` is on; ``tools/evaluate`` and
 ``inference/grounding.load_model`` read it). ``tools/bench_train.py``'s A/B
-flags and the data/sequence/tensor-parallel mesh are not part of the port
-yet.
+flags are not part of the port.
+
+Data parallel on N cards, one process per card:
+
+    python -m torch.distributed.run --nproc_per_node N -m vgqa_tpu_torch.tools.train \
+        --config-file configs/grounding_vidstg.yaml [KEY VALUE ...]
+
+or N processes started with the JAX package's contract (``VGQA_COORDINATOR``
+host:port, ``VGQA_NUM_PROCESSES``, ``VGQA_PROCESS_ID``; see
+``parallel/distributed.py``). Each rank trains on card ``LOCAL_RANK`` over
+NCCL (gloo with ``--device cpu``) at a global batch of N videos; rank 0
+writes the log, ``config.yml`` and the checkpoints. Sequence and tensor
+parallelism (``TPU.MESH_SP`` / ``MESH_TP`` above 1) raise.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import os
 from typing import Optional, Sequence
 
 from ..config import build_default_cfg
+from ..parallel.distributed import destroy, get_rank, initialize_multihost, is_main_process
 from ..training.trainer import Trainer
 from ..utils.log_setup import setup_logger
 
@@ -34,6 +46,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
+    formed = initialize_multihost(device=args.device)      # before any CUDA call
 
     cfg = build_default_cfg()
     if args.config_file:
@@ -43,16 +56,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if cfg.OUTPUT_DIR:
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    logger = setup_logger("Video Grounding", cfg.OUTPUT_DIR)
+    logger = setup_logger("Video Grounding", cfg.OUTPUT_DIR, rank=get_rank())
     trainer = Trainer(cfg, args.device, args.seed, logger=logger)
     logger.info(f"Device: {trainer.device}")
-    if cfg.OUTPUT_DIR:
+    if cfg.OUTPUT_DIR and is_main_process():
         with open(os.path.join(cfg.OUTPUT_DIR, "config.yml"), "w") as f:
             f.write(cfg.dump())
     trainer.setup()
     trainer.fit()
     if not args.skip_test:
         trainer.test()
+    if formed:
+        destroy()
     return 0
 
 

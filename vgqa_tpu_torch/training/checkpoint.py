@@ -6,6 +6,11 @@ naming the newest resumable checkpoint, and resume from it; and the
 params-only twins (``<name>_params``): a model state dict that
 ``inference/grounding.load_model`` and ``tools/evaluate`` load, written
 without moving the tag.
+
+Under data parallelism every rank holds the same state: rank 0 writes, and
+every rank waits at a barrier until the file and the tag are in place, so
+no two ranks write one ``.tmp`` and a resume finds a whole checkpoint; every
+rank loads.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import os
 
 import torch
 
+from ..parallel.distributed import is_main_process, synchronize
 from .train_step import TrainState
 
 logger = logging.getLogger(__name__)
@@ -37,25 +43,31 @@ class CheckpointManager:
             return ""
 
     def save(self, name: str, state: TrainState) -> str:
-        """Save ``state`` as ``name`` and point ``last_checkpoint`` at it."""
+        """Save ``state`` as ``name`` and point ``last_checkpoint`` at it
+        (rank 0 writes; every rank returns after both are in place)."""
         path = os.path.join(self.output_dir, name)
-        logger.info(f"Saving checkpoint to {path}")
-        torch.save({"step": state.step,
-                    "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "ema": state.ema}, f"{path}.tmp")
-        os.replace(f"{path}.tmp", path)
-        with open(self._tag_path, "w") as f:
-            f.write(path)
+        if is_main_process():
+            logger.info(f"Saving checkpoint to {path}")
+            torch.save({"step": state.step,
+                        "model": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict(),
+                        "ema": state.ema}, f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+            with open(self._tag_path, "w") as f:
+                f.write(path)
+        synchronize()
         return path
 
     def save_params(self, name: str, state_dict) -> str:
         """Save a model state dict as ``name``; the tag file stays where it is
-        (a params twin is not a resumable checkpoint)."""
+        (a params twin is not a resumable checkpoint); rank 0 writes, as in
+        :meth:`save`."""
         path = os.path.join(self.output_dir, name)
-        logger.info(f"Saving parameters to {path}")
-        torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, f"{path}.tmp")
-        os.replace(f"{path}.tmp", path)
+        if is_main_process():
+            logger.info(f"Saving parameters to {path}")
+            torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+        synchronize()
         return path
 
     def load(self, state: TrainState, path: str = "") -> bool:

@@ -136,7 +136,10 @@ def do_eval(cfg, mode, logger, model, data_loader, evaluator,
     interpolation, attention by hold interpolation, keyframe precision and
     recall averaged, the span by union) into ``evaluator``, which then
     summarizes. ``params`` (e.g. the EMA weights) stands in for the model's
-    parameters. Returns the metrics dict."""
+    parameters. In a data-parallel group each rank evaluates its loader's
+    slice and ``evaluator`` merges every rank's predictions before it
+    summarizes, so every rank returns the metrics of all items. Returns the
+    metrics dict."""
     if logger:
         logger.info(f"Start evaluation on the {mode} split of {cfg.DATASET.NAME}")
     fwd = make_eval_forward(model, pixel_stats=(cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD),

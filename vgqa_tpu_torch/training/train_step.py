@@ -15,6 +15,15 @@ bf16 copies of frozen parameters are made once and kept.
 
 Dropout draws from a ``DropoutRng`` seeded from (seed, step), as the JAX step
 folds the step into its key: a resumed run repeats an uninterrupted one.
+
+Data parallelism (a ``torch.distributed`` group, ``parallel/``): each rank
+runs the step on its slice of the global batch with its rank folded into
+the dropout seeds; the loss divides by the group's counts
+(``models/loss.py``), and after the backward every trainable gradient is
+replaced by its mean over the group (``parallel.distributed.
+average_gradients``), so the clip sees the global norm and every rank
+applies the same update: the ranks' parameters, moments and EMA stay
+bit-equal.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from torch import nn
 
 from ..ops.dropout import DropoutRng
 from ..ops.kernels.dtypes import check_kernel_dtype
+from ..parallel import distributed
 from ..utils.containers import TextBatch, VideoBatch, normalize_uint8_video
 from .optimizer import GroupedAdamW, update_ema
 
@@ -68,9 +78,9 @@ def make_train_step(loss_fn, weight_dict: Dict[str, float],
                     pixel_stats: Optional[Any] = None):
     """Returns ``step_fn(state, video, text, targets, seed) -> metrics``,
     which updates ``state`` in place. ``step_fn.loss_and_grads`` runs the
-    forward and backward only (gradients left in ``.grad``) and returns
-    ``(total, losses)``. ``pixel_stats=(mean, std)`` normalizes a uint8
-    feed on the device."""
+    forward and backward only (gradients left in ``.grad``, averaged over a
+    data-parallel group) and returns this rank's ``(total, losses)``.
+    ``pixel_stats=(mean, std)`` normalizes a uint8 feed on the device."""
 
     def params_for_forward(state: TrainState) -> Dict[str, torch.Tensor]:
         if compute_dtype is None:
@@ -102,7 +112,8 @@ def make_train_step(loss_fn, weight_dict: Dict[str, float],
         elif compute_dtype is not None:
             video = VideoBatch(video.frames.to(compute_dtype), video.pixel_mask,
                                video.time_mask)
-        rng = DropoutRng(step_seed(seed, state.step), video.frames.device)
+        rng = DropoutRng(step_seed(seed, state.step), video.frames.device,
+                         rank=distributed.get_rank())
         for p in state.model.parameters():
             p.grad = None
         out = torch.func.functional_call(state.model, params_for_forward(state),
@@ -110,6 +121,7 @@ def make_train_step(loss_fn, weight_dict: Dict[str, float],
         losses = loss_fn(_upcast(out), targets)
         total = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
         total.backward()
+        distributed.average_gradients(p for p in state.model.parameters() if p.requires_grad)
         return total.detach(), {k: v.detach() for k, v in losses.items()}
 
     def step_fn(state: TrainState, video: VideoBatch, text: TextBatch, targets: Dict,

@@ -15,6 +15,17 @@ every ``SOLVER.VAL_PERIOD`` steps when ``SOLVER.TO_VAL`` holds.
 reads the metrics of every step. ``setup`` sets the port's float32 policy
 (``utils/device.apply_precision_policy``: TF32 off in cuBLAS and cuDNN).
 
+Data parallelism: in a ``torch.distributed`` group (``parallel.
+initialize_multihost``, which ``tools/train`` calls first) the layout is
+``build_mesh(TPU.MESH_DP, MESH_TP, MESH_SP)``: dp = the group's size, one
+card per rank (``tp`` / ``sp`` above 1 raise). Each rank builds the same
+seeded model, loads the same checkpoint, and reads its slice of a global
+batch of dp videos (``max_iter`` = ceil(items / dp) x epochs); the step
+averages the gradients (``training/train_step.py``); the metrics are
+averaged over the group on the log cadence only, and only rank 0 logs,
+writes tensorboard scalars and checkpoints; ``validate`` evaluates each
+rank's slice and merges the predictions.
+
     python -m vgqa_tpu_torch.training.trainer --steps N [--device cpu] [KEY VALUE ...]
 
 trains on the fixed synthetic batch (``data/synthetic_batch.py``) and logs
@@ -40,6 +51,8 @@ from ..data.synthetic_batch import synthetic_batch
 from ..models import GroundingConfig, VSTGNet
 from ..models.init_weights import init_weights
 from ..models.loss import build_loss, build_weight_dict
+from ..parallel.distributed import is_main_process, reduce_mean
+from ..parallel.mesh import build_mesh
 from ..utils.device import apply_precision_policy, resolve_device
 from ..utils.metrics_logger import MetricLogger
 from ..utils.tensorboard import SummaryWriter
@@ -64,6 +77,7 @@ class Trainer:
 
     def _loader(self, mode: str = "train", start_iter: int = 0):
         return make_data_loader(self.cfg, mode, start_iter=start_iter,
+                                global_batch=self.mesh.dp,
                                 pin_memory=self.device.type == "cuda")
 
     def setup(self, max_iter: Optional[int] = None) -> None:
@@ -71,6 +85,8 @@ class Trainer:
         length (SOLVER.MAX_EPOCH epochs of the train split)."""
         c = self.cfg
         apply_precision_policy()
+        self.mesh = build_mesh(c.TPU.MESH_DP, c.TPU.MESH_TP, c.TPU.MESH_SP)
+        self.logger.info(f"Mesh: dp={self.mesh.dp}, sp={self.mesh.sp}, tp={self.mesh.tp}")
         if max_iter is None:
             max_iter = len(self._loader())
         model = VSTGNet(GroundingConfig.from_cfg(c))
@@ -129,7 +145,7 @@ class Trainer:
                       for i in range(steps))
             last, period = start_iter + steps, 1
         meter = MetricLogger()
-        writer = SummaryWriter(c.TENSORBOARD_DIR)
+        writer = SummaryWriter(c.TENSORBOARD_DIR if is_main_process() else "")
         logged = []
         start_time = before = time.perf_counter()
         for batch in source:
@@ -143,7 +159,7 @@ class Trainer:
             meter.update(time=batch_time, data=data_time)
             self.step_log.append((step, data_time, batch_time))
             if step % period == 0 or step == last:
-                host = {k: float(v) for k, v in metrics.items()}     # the host sync
+                host = reduce_mean(metrics)   # the host sync (the group's mean under dp)
                 logged.append({"step": step, **host})
                 verbose = {k: v for k, v in host.items()
                            if k in self.weight_dict and not k[-1].isdigit()}
@@ -180,14 +196,15 @@ class Trainer:
 
     def save(self, name: str) -> None:
         """The train state as ``name`` (the resume tag moves to it) and its
-        params twin ``name_params``."""
+        params twin ``name_params``; rank 0 writes both."""
         self.ckpt.save(name, self.state)
         self.ckpt.save_params(f"{name}_params", self.params_state_dict())
 
     def validate(self) -> Dict[str, float]:
-        """``do_eval`` on the test split with :meth:`eval_params`. The last
-        step's gradients and the allocator's cached blocks are released
-        first, so evaluation does not stack on the training peak."""
+        """``do_eval`` on the test split with :meth:`eval_params`: each rank
+        evaluates its slice, and the metrics are those of all items, merged.
+        The last step's gradients and the allocator's cached blocks are
+        released first, so evaluation does not stack on the training peak."""
         c = self.cfg
         for p in self.state.model.parameters():
             p.grad = None
