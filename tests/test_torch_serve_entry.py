@@ -115,19 +115,15 @@ def _assert_same_response(out_t, out_j):
 
 
 def _count_forwards(monkeypatch):
-    """Rows of each forward the port's ``predict_many`` launches."""
+    """Rows of each forward the port's ``predict_many`` launches (both
+    policies launch through ``dispatch_forward``)."""
     rows = []
-    real_single, real_dispatch = grounding.single_forward, grounding.dispatch_forward
-
-    def single(fwd, video, *a, **kw):
-        rows.append(2 * video.frames.shape[0])
-        return real_single(fwd, video, *a, **kw)
+    real_dispatch = grounding.dispatch_forward
 
     def dispatch(fwd, video, *a, **kw):
         rows.append(2 * video.frames.shape[0])
         return real_dispatch(fwd, video, *a, **kw)
 
-    monkeypatch.setattr(grounding, "single_forward", single)
     monkeypatch.setattr(grounding, "dispatch_forward", dispatch)
     return rows
 

@@ -47,6 +47,7 @@ from urllib.parse import parse_qs, urlparse
 
 from ..inference import grounding as grounding_inference
 from ..inference import qa as qa_inference
+from ..utils import trace
 
 PROJECT_ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_VIDEOS = PROJECT_ROOT / "videos"
@@ -131,7 +132,13 @@ class _Coalescer:
 
     ``run_batch(requests) -> list[result | Exception]`` runs one drained
     batch (aligned with its input); an Exception in a slot fails only its
-    own caller."""
+    own caller.
+
+    Traced (``utils/trace``): ``vgqa.serve.request`` per request (submit to
+    result, its own request id), its child ``vgqa.serve.queue`` (submit to
+    drained, ended by the drain thread) and ``vgqa.serve.batch`` per drained
+    batch (around the device lock and ``run_batch``; ``rids`` names its
+    requests, which the batch runner's spans take up)."""
 
     def __init__(self, max_batch: int, timeout_s: float, run_batch):
         self.max_batch = max(1, max_batch)
@@ -143,7 +150,7 @@ class _Coalescer:
 
     def _run_jobs(self, jobs: List[Dict[str, Any]]) -> None:
         try:
-            with _infer_lock:
+            with trace.span("vgqa.serve.batch", rids=[j["rid"] for j in jobs]), _infer_lock:
                 results = self.run_batch([j["request"] for j in jobs])
             for job, res in zip(jobs, results):
                 if isinstance(res, Exception):
@@ -166,11 +173,19 @@ class _Coalescer:
                     return
                 batch = self._jobs[: self.max_batch]
                 del self._jobs[: self.max_batch]
+            for job in batch:
+                job["queued"].end()
             self._run_jobs(batch)
 
     def submit(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        rid = trace.new_rid()
+        with trace.span("vgqa.serve.request", rid=rid):
+            return self._submit(request, rid)
+
+    def _submit(self, request: Dict[str, Any], rid: int) -> Dict[str, Any]:
         job: Dict[str, Any] = {"request": request, "done": threading.Event(),
-                               "result": None, "error": None}
+                               "result": None, "error": None, "rid": rid,
+                               "queued": trace.begin("vgqa.serve.queue", rid=rid)}
         with self._mutex:
             self._jobs.append(job)
             if not self._alive:

@@ -44,8 +44,8 @@ from ..training.evaluator import (
     linear_interp,
     linear_interp_conf,
     make_eval_forward,
-    single_forward,
 )
+from ..utils import trace
 from ..utils.containers import TextBatch, VideoBatch
 from ..utils.device import apply_precision_policy, resolve_device
 
@@ -137,8 +137,10 @@ def load_model(cfg, ckpt_path: str = "", device=None, seed: int = 0,
         fr = (full_range > 0)[:, None, None, None]
 
         def coef(full, limited):
-            return torch.where(fr, torch.tensor(full, device=device),
-                               torch.tensor(limited, device=device))
+            with trace.sync("ground.yuv_coef"):
+                full = torch.tensor(full, device=device)
+                limited = torch.tensor(limited, device=device)
+            return torch.where(fr, full, limited)
 
         yl = torch.where(fr, y, 1.1643835616 * (y - 16.0))
         r = yl + coef(1.402, 1.5960267857) * v
@@ -254,7 +256,8 @@ def _group_inputs(loaded: LoadedModel, group):
                        pixel_mask=torch.ones((2 * n, res, res), dtype=torch.bool, device=dev),
                        time_mask=torch.ones((2 * n, t_half), dtype=torch.bool, device=dev))
     if group[0]["yuv"]:
-        fr = torch.tensor([g["full_range"] for g in group], dtype=torch.float32, device=dev)
+        with trace.sync("ground.full_range"):
+            fr = torch.tensor([g["full_range"] for g in group], dtype=torch.float32, device=dev)
 
         def fwd(v, t, o, lb):
             return loaded.fwd_yuv(v.frames, v.pixel_mask, v.time_mask, t, o, lb, fr)
@@ -265,7 +268,8 @@ def _group_inputs(loaded: LoadedModel, group):
     for g in group:
         queries += [g["query"], g["query"]]
     ids, mask = batch_encode(loaded.tokenizer, queries, loaded.cfg.INPUT.MAX_QUERY_LEN)
-    text = TextBatch(torch.from_numpy(ids).long().to(dev), torch.from_numpy(mask).to(dev))
+    with trace.sync("ground.text"):
+        text = TextBatch(torch.from_numpy(ids).long().to(dev), torch.from_numpy(mask).to(dev))
     infos = [
         {
             "item_id": 2 * i + half,
@@ -293,7 +297,9 @@ def _prepare(loaded: LoadedModel, req) -> Dict[str, Any]:
             raise ValueError(f"frames must be uint8 [T, {res}, {res}, 3], got "
                              f"{frames.dtype} {tuple(frames.shape)}")
         frame_ids = req.get("frame_ids", range(frames.shape[0]))
-        frames, frame_ids = _even_frames(frames.to(loaded.device), frame_ids)
+        with trace.sync("ground.frames"):
+            frames = frames.to(loaded.device)
+        frames, frame_ids = _even_frames(frames, frame_ids)
         return {"frames": frames, "frame_ids": frame_ids, "yuv": False,
                 "full_range": 0.0, "fps": float(req["fps"]),
                 "ori_size": tuple(req["ori_size"]), "query": req["query"]}
@@ -334,9 +340,12 @@ def _run_group(loaded: LoadedModel, group) -> None:
     frame count); fills each job's ``out`` (rows 2i and 2i + 1 are video
     i's halves)."""
     fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, group)
-    b1, a1, t1, _ = single_forward(fwd, video, text, infos, gt_act, canvas=canvas)
+    packed, span = dispatch_forward(fwd, video, text, infos, canvas=canvas)
+    with trace.span("vgqa.ground.fetch"):
+        b1, a1, t1, _ = convert_outputs(packed, span, infos, gt_act)
     for i, job in enumerate(group):
-        job["out"] = _merge_halves(b1, a1, t1, 2 * i, job["fps"])
+        with trace.span("vgqa.ground.merge", rid=job["rid"]):
+            job["out"] = _merge_halves(b1, a1, t1, 2 * i, job["fps"])
 
 
 def coalesce_from_env() -> bool:
@@ -363,30 +372,42 @@ def predict_many(requests, cfg_path: str = DEFAULT_CONFIG_PATH,
     ``device`` is the card unless ``"cpu"`` is asked for. Returns a list
     aligned with ``requests``: each slot is the response dict or the
     exception raised preparing that request (a bad video fails only its
-    own slot)."""
+    own slot).
+
+    Traced (``utils/trace``), per request: ``vgqa.ground.prepare``,
+    ``vgqa.ground.launch`` (per group when coalescing, around the whole
+    group's forward), ``vgqa.ground.fetch`` (per group when coalescing) and
+    ``vgqa.ground.merge``, under the request ids of the coalescer's batch."""
     loaded = loaded or _load_model(cfg_path, ckpt_path, device)
     if coalesce is None:
         coalesce = coalesce_from_env()
     jobs = [None] * len(requests)
     pending = []
     for i, req in enumerate(requests):
+        rid = trace.request_rid(i)
         try:
-            jobs[i] = _prepare(loaded, req)
+            with trace.span("vgqa.ground.prepare", rid=rid):
+                jobs[i] = _prepare(loaded, req)
         except Exception as e:  # noqa: BLE001 - per-slot failure isolation
             jobs[i] = e
             continue
+        jobs[i]["rid"] = rid
         if not coalesce:
-            fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, [jobs[i]])
-            pending.append((jobs[i], dispatch_forward(fwd, video, text, infos, canvas=canvas),
-                            infos, gt_act))
+            with trace.span("vgqa.ground.launch", rid=rid):
+                fwd, video, text, infos, gt_act, canvas = _group_inputs(loaded, [jobs[i]])
+                out = dispatch_forward(fwd, video, text, infos, canvas=canvas)
+            pending.append((jobs[i], out, infos, gt_act))
     if coalesce:
         groups: Dict[Tuple[bool, int], list] = {}
         for job in jobs:
             if not isinstance(job, Exception):
                 groups.setdefault((job["yuv"], int(job["frames"].shape[0])), []).append(job)
         for group in groups.values():
-            _run_group(loaded, group)
+            with trace.span("vgqa.ground.launch"):
+                _run_group(loaded, group)
     for job, (packed, span), infos, gt_act in pending:
-        b1, a1, t1, _ = convert_outputs(packed, span, infos, gt_act)
-        job["out"] = _merge_halves(b1, a1, t1, 0, job["fps"])
+        with trace.span("vgqa.ground.fetch", rid=job["rid"]):
+            b1, a1, t1, _ = convert_outputs(packed, span, infos, gt_act)
+        with trace.span("vgqa.ground.merge", rid=job["rid"]):
+            job["out"] = _merge_halves(b1, a1, t1, 0, job["fps"])
     return [j if isinstance(j, Exception) else j["out"] for j in jobs]

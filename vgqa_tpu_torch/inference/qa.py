@@ -27,6 +27,7 @@ from ..qa.engine import GenerationConfig, QAEngine
 from ..qa.llm import LLMConfig
 from ..qa.preprocess import load_video_tiles, load_video_tiles_yuv
 from ..qa.vit import ViTConfig
+from ..utils import trace
 from ..utils.device import resolve_device
 
 DEFAULT_MODEL_DIR = "checkpoints/qa/InternVideo2_5_Chat_8B"
@@ -179,7 +180,9 @@ def predict_many(
         except Exception as e:  # noqa: BLE001 - per-slot failure isolation
             out[i] = e
     if prepped:
-        answers = engine.chat_batch(prepped, gens=gens)
+        # the kept slots' request ids: a failed slot leaves the batch
+        answers = engine.chat_batch(prepped, gens=gens,
+                                    rids=[trace.request_rid(i) for i in slots])
         for i, ans in zip(slots, answers):
             out[i] = {"answer": str(ans)}
     return out

@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from ..utils.boxes import box_cxcywh_to_xyxy
 
 NEG = -1e32
@@ -32,14 +33,16 @@ def postprocess(
     upper = torch.cat([w, h, w, h], dim=-1)[:, None, :]
     if letterbox is not None:
         letterbox = letterbox.float()
-        s = letterbox[:, None, [0, 1, 0, 1]]
-        o = letterbox[:, None, [2, 3, 2, 3]]
+        with trace.sync("postprocess.letterbox"):        # two index uploads
+            s = letterbox[:, None, [0, 1, 0, 1]]
+            o = letterbox[:, None, [2, 3, 2, 3]]
         boxes = torch.minimum(((boxes - o) / s).clamp(min=0.0), upper)
     else:
         boxes = (boxes * upper).clamp(min=0.0)
 
     V, T, _ = pred_sted.shape
-    neg = torch.tensor(NEG, device=pred_sted.device)
+    with trace.sync("postprocess.neg"):
+        neg = torch.tensor(NEG, device=pred_sted.device)
     sted = torch.where(time_mask[..., None], pred_sted.float(), neg)
     start_lp = torch.log_softmax(sted[..., 0], dim=-1)
     end_lp = torch.log_softmax(sted[..., 1], dim=-1)

@@ -43,6 +43,7 @@ from ..ops.kernels.swin_block import (
     swin_block_canvas_reference,
     swin_block_fused,
 )
+from ..utils import trace
 
 Tuple3 = Tuple[int, int, int]
 ROUTES = ("canvas", "module", "blocks")
@@ -132,7 +133,8 @@ def compute_shift_mask(dims_padded: Tuple3, window: Tuple3, shift: Tuple3,
     different regions, 0 within one; None without a shift."""
     if not any(shift):
         return None
-    region = torch.from_numpy(_region_partition(dims_padded, window, shift)).to(device)
+    with trace.sync("swin.region"):
+        region = torch.from_numpy(_region_partition(dims_padded, window, shift)).to(device)
     return (region[:, None, :] != region[:, :, None]).float() * -100.0
 
 
@@ -292,10 +294,12 @@ def fused_block_apply(x: torch.Tensor, blk: SwinBlock3D, full_window: Tuple3,
     region = None
     if any(shift):
         h = torch.roll(h, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
-        region = torch.from_numpy(_region_partition(padded, window, shift)).to(x.device)
+        with trace.sync("swin.region"):
+            region = torch.from_numpy(_region_partition(padded, window, shift)).to(x.device)
     valid = _valid_partition((D, H, W), padded, window, shift)
     if valid is not None:
-        valid = torch.from_numpy(valid).to(x.device)
+        with trace.sync("swin.valid"):
+            valid = torch.from_numpy(valid).to(x.device)
     N = window[0] * window[1] * window[2]
     out = swin_block_fused(window_partition(h, window), *blk.kernel_weights(),
                            blk.attn.relative_position_bias(N), num_heads,
@@ -362,7 +366,8 @@ class VideoSwinBackbone(nn.Module):
             return None
         total = sum(c.depths)
         keep = torch.from_numpy(1.0 - np.linspace(0.0, c.drop_path_rate, total)).float()
-        keep = keep.to(device)[:, None, None].expand(total, batch, 2)
+        with trace.sync("swin.drop_path"):
+            keep = keep.to(device)[:, None, None].expand(total, batch, 2)
         return rng.bernoulli(keep).float() / keep
 
     def _canvas_stage(self, x, stage: int, depth: int, gates, blk_base: int):
@@ -383,10 +388,13 @@ class VideoSwinBackbone(nn.Module):
             rel = tuple((s - f) % p for s, f, p in zip(shift, frame, padded))
             region = valid = None
             if any(shift):
-                region = torch.from_numpy(_region_partition(padded, window, shift)).to(x.device)
+                with trace.sync("swin.region"):
+                    region = torch.from_numpy(
+                        _region_partition(padded, window, shift)).to(x.device)
             v = _valid_partition((D_, H_, W_), padded, window, shift)
             if v is not None:
-                valid = torch.from_numpy(v).to(x.device)
+                with trace.sync("swin.valid"):
+                    valid = torch.from_numpy(v).to(x.device)
             x = block(x, *blk.kernel_weights(), blk.attn.relative_position_bias(N),
                       c.num_heads[stage], window, rel, region=region, valid=valid,
                       gates=None if gates is None else gates[blk_base + b])

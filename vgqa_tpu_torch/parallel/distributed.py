@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from ..utils.device import rank_device
 
 BUCKET_NUMEL = 1 << 25          # elements per flat gradient bucket (128 MiB in float32)
@@ -193,34 +194,37 @@ def average_gradients(params: Iterable[torch.nn.Parameter]) -> int:
     (a sum, then a division by the world size: gloo has no AVG) in flat
     buckets of at most ``BUCKET_NUMEL`` elements; a parameter without a
     gradient takes part as zeros, so every rank's buckets have one layout.
-    Returns the bytes all-reduced; 0 without a group."""
+    Returns the bytes all-reduced; 0 without a group. Traced as
+    ``vgqa.train.allreduce`` (``utils/trace``)."""
     if not is_distributed():
         return 0
-    params = list(params)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    world, sent = dist.get_world_size(), 0
-    buckets, current, size = [], [], 0
-    for p in params:
-        if current and (size + p.numel() > BUCKET_NUMEL or p.grad.dtype != current[0].grad.dtype):
+    with trace.span("vgqa.train.allreduce"):
+        params = list(params)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        world, sent = dist.get_world_size(), 0
+        buckets, current, size = [], [], 0
+        for p in params:
+            if current and (size + p.numel() > BUCKET_NUMEL
+                            or p.grad.dtype != current[0].grad.dtype):
+                buckets.append(current)
+                current, size = [], 0
+            current.append(p)
+            size += p.numel()
+        if current:
             buckets.append(current)
-            current, size = [], 0
-        current.append(p)
-        size += p.numel()
-    if current:
-        buckets.append(current)
-    for bucket in buckets:
-        flat = torch.cat([p.grad.reshape(-1) for p in bucket])
-        all_reduce_(flat)
-        flat.div_(world)
-        sent += flat.numel() * flat.element_size()
-        offset = 0
-        for p in bucket:
-            n = p.numel()
-            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
-            offset += n
-    return sent
+        for bucket in buckets:
+            flat = torch.cat([p.grad.reshape(-1) for p in bucket])
+            all_reduce_(flat)
+            flat.div_(world)
+            sent += flat.numel() * flat.element_size()
+            offset = 0
+            for p in bucket:
+                n = p.numel()
+                p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+                offset += n
+        return sent
 
 
 def reduce_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -232,7 +236,8 @@ def reduce_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         return {}
     stacked = torch.stack([metrics[k].detach().float().reshape(()) for k in names])
     all_reduce_(stacked)
-    values = (stacked / get_world_size()).tolist()
+    with trace.sync("reduce_mean"):
+        values = (stacked / get_world_size()).tolist()
     return dict(zip(names, values))
 
 

@@ -24,13 +24,13 @@ decode (``VGQA_STACKED_KV``, ``VGQA_SCAN_DECODE``).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .llm import (LLM, LLMConfig, RMSNorm, TokenEmbedding, init_kv_cache, kv_seq_len,
                   load_llm_state, quantize_kv_cache)
@@ -305,10 +305,13 @@ class QAEngine:
         S = kv_seq_len(cache)
         stops = self._stop_ids(gen.ignore_eos)
         sample = gen.do_sample and gen.temperature > 0
-        temp = torch.tensor([gen.temperature], device=self.device)
-        top_p = torch.tensor([gen.top_p], device=self.device)
+        with trace.sync("qa.decode.inputs"):
+            temp = torch.tensor([gen.temperature], device=self.device)
+            top_p = torch.tensor([gen.top_p], device=self.device)
         logits, position, out = first_logits, length, []
+        steps = 0
         for t in range(gen.max_new_tokens):
+            steps = t + 1
             if sample:
                 next_id = _draw(nucleus_logits(logits, temp, top_p)[0], generator)
             else:
@@ -320,6 +323,7 @@ class QAEngine:
                 break
             logits, cache = self._decode_impl(cache, next_id.reshape(1), position)
             position += 1
+        trace.count("qa.decode_steps", steps)
         return [int(i) for i in torch.stack(out).tolist()] if out else []
 
     # -- prompt assembly --------------------------------------------------------
@@ -356,8 +360,9 @@ class QAEngine:
         """uint8 tiles are normalized on the device ((x/255 - mean)/std as one
         multiply-add in the engine dtype); float tiles go in as they are."""
         if tiles.dtype == torch.uint8:
-            std = torch.tensor(IMAGENET_STD, device=self.device)
-            mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+            with trace.sync("qa.vision.stats"):
+                std = torch.tensor(IMAGENET_STD, device=self.device)
+                mean = torch.tensor(IMAGENET_MEAN, device=self.device)
             scale = (1.0 / (255.0 * std)).to(self.dtype)
             bias = (-mean / std).to(self.dtype)
             tiles = tiles.to(self.dtype) * scale + bias
@@ -380,8 +385,9 @@ class QAEngine:
             yl = 1.1643835616 * (y - 16.0)
             cr, gu, gv, bu = 1.5960267857, 0.3917622768, 0.8129676339, 2.0172321429
         rgb = torch.stack([yl + cr * v, yl - gu * u - gv * v, yl + bu * u], -1).clamp(0.0, 255.0)
-        std = torch.tensor(IMAGENET_STD, device=self.device)
-        mean = torch.tensor(IMAGENET_MEAN, device=self.device)
+        with trace.sync("qa.vision.stats"):
+            std = torch.tensor(IMAGENET_STD, device=self.device)
+            mean = torch.tensor(IMAGENET_MEAN, device=self.device)
         tiles = (rgb * (1.0 / (255.0 * std)) + (-mean / std)).to(self.dtype)
         return self.vision(tiles, flash=self.use_kernels)
 
@@ -417,7 +423,8 @@ class QAEngine:
         """bf16 (engine dtype) prefill into a fresh cache, then the int8
         conversion for decode when ``kv_int8``."""
         cache = init_kv_cache(self.llm_cfg, 1, max_total, self.dtype, device=self.device)
-        n = torch.tensor(length, device=self.device)
+        with trace.sync("qa.prefill.length"):
+            n = torch.tensor(length, device=self.device)
         fn = self._prefill_chunked_impl if chunked else self._prefill_impl
         logits, cache = fn(embeds, n, cache)
         if self.kv_int8:
@@ -435,57 +442,55 @@ class QAEngine:
         generator: Optional[torch.Generator] = None,
         return_stats: bool = False,
     ):
-        """The answer string; with ``return_stats`` ``(answer, stats)`` with
-        the phases' wall times and rates (``vision_s``, ``prefill_s``,
-        ``prefill_tok_s``, ``decode_s``, ``decode_tok_s``), each phase fenced
-        by a scalar read from the device."""
+        """The answer string; with ``return_stats`` ``(answer, stats)``: the
+        phases' times and rates (``vision_s``, ``prefill_s``,
+        ``prefill_tok_s``, ``decode_s``, ``decode_tok_s``) from the device
+        intervals of the call's own ``vgqa.qa.*`` spans (``utils/trace``,
+        turned on for the call)."""
+        if not return_stats:
+            return self._chat(tiles, question, gen, num_patches_list, generator)[0]
+        with trace.tracing():
+            text, stats, spans = self._chat(tiles, question, gen, num_patches_list, generator)
+        stats["vision_s"], stats["prefill_s"], stats["decode_s"] = (
+            trace.device_s(sp) for sp in spans)
+        stats["prefill_tok_s"] = stats["prefill_tokens"] / stats["prefill_s"]
+        stats["decode_tok_s"] = max(stats["decode_tokens"], 1) / stats["decode_s"]
+        return text, stats
+
+    def _chat(self, tiles, question, gen, num_patches_list, generator):
+        """(answer, stats without times, the vision / prefill / decode span
+        records, None while tracing is off)."""
         gen = gen or GenerationConfig()
         if num_patches_list is None:
             num_patches_list = [tiles.shape[0]]
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        stats: Dict[str, Any] = {}
 
-        t0 = time.perf_counter()
-        vision_tokens = self._encode_vision(tiles)
-        vision_tokens = vision_tokens.reshape(-1, vision_tokens.shape[-1])
-        if return_stats:
-            float(vision_tokens[0, 0])         # fence: the phase has run
-            stats["vision_s"] = time.perf_counter() - t0
-            stats["vision_tiles"] = int(tiles.shape[0])
-            t0 = time.perf_counter()
-
-        ids, img_positions = self.build_prompt_ids(question, num_patches_list)
-        if len(img_positions) != vision_tokens.shape[0]:
-            raise ValueError(f"{len(img_positions)} image-token slots vs "
-                             f"{vision_tokens.shape[0]} vision tokens")
-        length = len(ids)
-        if length > self.max_seq_len:
-            raise ValueError(
-                f"prompt is {length} tokens but the model's context is "
-                f"{self.max_seq_len}; reduce num_frames or tiles "
-                f"({len(num_patches_list)} frames x {self.num_image_token} "
-                "image tokens per tile)")
-        Lp, chunked = self._plan_prefill(length)
-        max_total = min(self.max_seq_len, Lp + gen.max_new_tokens)
-        embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
-        logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
-        if return_stats:
-            float(logits[0, 0])
-            stats["prefill_s"] = time.perf_counter() - t0
-            stats["prefill_tokens"] = length
-            stats["prefill_tok_s"] = length / stats["prefill_s"]
-            stats["prefill_chunked"] = bool(chunked)
-            t0 = time.perf_counter()
-
-        out_ids = self._generate(cache, logits, length, gen, generator)
-        text = self.tokenizer.decode(out_ids)
-        if return_stats:
-            stats["decode_s"] = time.perf_counter() - t0
-            stats["decode_tokens"] = len(out_ids)
-            stats["decode_tok_s"] = max(len(out_ids), 1) / stats["decode_s"]
-            return text, stats
-        return text
+        with trace.span("vgqa.qa.vision") as sp_vision:
+            vision_tokens = self._encode_vision(tiles)
+            vision_tokens = vision_tokens.reshape(-1, vision_tokens.shape[-1])
+        with trace.span("vgqa.qa.prefill") as sp_prefill:
+            ids, img_positions = self.build_prompt_ids(question, num_patches_list)
+            if len(img_positions) != vision_tokens.shape[0]:
+                raise ValueError(f"{len(img_positions)} image-token slots vs "
+                                 f"{vision_tokens.shape[0]} vision tokens")
+            length = len(ids)
+            if length > self.max_seq_len:
+                raise ValueError(
+                    f"prompt is {length} tokens but the model's context is "
+                    f"{self.max_seq_len}; reduce num_frames or tiles "
+                    f"({len(num_patches_list)} frames x {self.num_image_token} "
+                    "image tokens per tile)")
+            Lp, chunked = self._plan_prefill(length)
+            max_total = min(self.max_seq_len, Lp + gen.max_new_tokens)
+            embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
+            logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
+        with trace.span("vgqa.qa.decode") as sp_decode:
+            out_ids = self._generate(cache, logits, length, gen, generator)
+            text = self.tokenizer.decode(out_ids)
+        stats = {"vision_tiles": int(tiles.shape[0]), "prefill_tokens": length,
+                 "prefill_chunked": bool(chunked), "decode_tokens": len(out_ids)}
+        return text, stats, (sp_vision, sp_prefill, sp_decode)
 
     @torch.no_grad()
     def prefill_logits(self, tiles, question: str, num_patches_list=None) -> torch.Tensor:
@@ -497,7 +502,8 @@ class QAEngine:
         Lp, chunked = self._plan_prefill(len(ids))
         embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
         cache = init_kv_cache(self.llm_cfg, 1, Lp, self.dtype, device=self.device)
-        n = torch.tensor(len(ids), device=self.device)
+        with trace.sync("qa.prefill.length"):
+            n = torch.tensor(len(ids), device=self.device)
         fn = self._prefill_chunked_impl if chunked else self._prefill_impl
         return fn(embeds, n, cache)[0]
 
@@ -508,7 +514,7 @@ class QAEngine:
         gen: Optional[GenerationConfig] = None,
         gens: Optional[List[GenerationConfig]] = None,
         generators: Optional[List[torch.Generator]] = None,
-        return_stats: bool = False,
+        rids: Optional[List[Optional[int]]] = None,
     ):
         """Serve B requests with one lockstep batched decode.
 
@@ -517,20 +523,29 @@ class QAEngine:
         into its own row of a shared [B, ...] cache; then all rows decode
         together, each at its own position, with its own ``max_new_tokens``,
         temperature, top-p and generator (``generators[b]``, default seeded
-        ``b``), so a row draws what a solo chat with that generator draws. Returns the answers (and stats with ``return_stats``)."""
+        ``b``), so a row draws what a solo chat with that generator draws.
+        Returns the answers.
+
+        Traced (``utils/trace``): ``vgqa.qa.vision`` and ``vgqa.qa.prefill``
+        per request (prefill with the copy of its row into the batch cache)
+        under the request's id, ``rids[b]`` (by default request ``b`` of the
+        coalescer's batch), ``vgqa.qa.decode`` around the lockstep loop,
+        whose steps add to ``qa.decode_steps``."""
         if gens is not None:
             if len(gens) != len(requests):
                 raise ValueError(f"{len(gens)} generation configs for {len(requests)} requests")
         else:
             gens = [gen or GenerationConfig()] * len(requests)
         if not requests:
-            return ([], {}) if return_stats else []
-        t0 = time.perf_counter()
+            return []
+        if rids is None:
+            rids = [trace.request_rid(i) for i in range(len(requests))]
         prepped = []
-        for req in requests:
+        for i, req in enumerate(requests):
             tiles, question = req[0], req[1]
             npl = list(req[2]) if len(req) > 2 else [tiles.shape[0]]
-            vision_tokens = self._encode_vision(tiles)
+            with trace.span("vgqa.qa.vision", rid=rids[i]):
+                vision_tokens = self._encode_vision(tiles)
             vision_tokens = vision_tokens.reshape(-1, vision_tokens.shape[-1])
             ids, img_positions = self.build_prompt_ids(question, npl)
             if len(img_positions) != vision_tokens.shape[0]:
@@ -551,23 +566,20 @@ class QAEngine:
                                     quant="int8" if self.kv_int8 else None, device=self.device)
         first = []
         for i, (vision_tokens, ids, img_positions, length) in enumerate(prepped):
-            embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
-            logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
-            for dst, src in zip(batch_cache, cache):            # row i, in place
-                pairs = dst.items() if isinstance(dst, dict) else enumerate(dst)
-                for key, buf in pairs:
-                    buf[i:i + 1].copy_(src[key])
+            with trace.span("vgqa.qa.prefill", rid=rids[i]):
+                embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
+                logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
+                for dst, src in zip(batch_cache, cache):            # row i, in place
+                    pairs = dst.items() if isinstance(dst, dict) else enumerate(dst)
+                    for key, buf in pairs:
+                        buf[i:i + 1].copy_(src[key])
             del cache
             first.append(logits)
 
-        tokens = self._generate_batch(batch_cache, torch.cat(first, 0),
-                                      [p[3] for p in prepped], gens, generators)
-        answers = [self.tokenizer.decode([t for t in row if t >= 0]) for row in tokens]
-        if return_stats:
-            dt = time.perf_counter() - t0
-            return answers, {"batch": B, "total_s": dt,
-                             "agg_tok_s_e2e": sum(g.max_new_tokens for g in gens) / dt}
-        return answers
+        with trace.span("vgqa.qa.decode"):
+            tokens = self._generate_batch(batch_cache, torch.cat(first, 0),
+                                          [p[3] for p in prepped], gens, generators)
+        return [self.tokenizer.decode([t for t in row if t >= 0]) for row in tokens]
 
     def _generate_batch(self, cache, first_logits, lengths: List[int],
                         gens: List[GenerationConfig], generators) -> List[List[int]]:
@@ -578,18 +590,20 @@ class QAEngine:
         dev = self.device
         max_new = max(g.max_new_tokens for g in gens)
         stops = self._stop_ids(all(g.ignore_eos for g in gens))
-        stop_t = torch.tensor(stops or [-1], device=dev)
-        limits = torch.tensor([g.max_new_tokens for g in gens], device=dev)
         sampled = [bool(g.do_sample and g.temperature > 0) for g in gens]
         if any(sampled) and generators is None:
             generators = [torch.Generator(device=dev).manual_seed(b) for b in range(B)]
-        temps = torch.tensor([g.temperature for g in gens], device=dev)
-        top_ps = torch.tensor([g.top_p for g in gens], device=dev)
-        position = torch.tensor(lengths, device=dev)
+        with trace.sync("qa.decode.inputs"):
+            stop_t = torch.tensor(stops or [-1], device=dev)
+            limits = torch.tensor([g.max_new_tokens for g in gens], device=dev)
+            temps = torch.tensor([g.temperature for g in gens], device=dev)
+            top_ps = torch.tensor([g.top_p for g in gens], device=dev)
+            position = torch.tensor(lengths, device=dev)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         tokens = torch.full((max_new, B), -1, dtype=torch.int64, device=dev)
-        logits = first_logits
+        logits, steps = first_logits, 0
         for t in range(max_new):
+            steps = t + 1
             next_id = logits.argmax(-1)
             if any(sampled):
                 masked = nucleus_logits(logits, temps, top_ps)
@@ -599,8 +613,14 @@ class QAEngine:
             is_stop = torch.isin(next_id, stop_t) | (position >= S - 1) | (t >= limits)
             tokens[t] = torch.where(done | is_stop, -1, next_id)
             done = done | is_stop
-            if t + 1 == max_new or bool(done.all()):
+            if t + 1 == max_new:
+                break
+            with trace.sync("qa.decode.done"):
+                finished = bool(done.all())
+            if finished:
                 break
             logits, cache = self._decode_impl(cache, tokens[t].clone(), position)
             position = position + 1
-        return tokens.t().tolist()
+        trace.count("qa.decode_steps", steps)
+        with trace.sync("qa.decode.tokens"):
+            return tokens.t().tolist()

@@ -14,6 +14,7 @@ import torch
 from ..data.collate import batch_to
 from ..data.metrics.evaluator import precision_recall
 from ..models.postprocess import postprocess
+from ..utils import trace
 from ..utils.containers import TextBatch, VideoBatch, normalize_uint8_video
 
 
@@ -92,13 +93,16 @@ def dispatch_forward(fwd, video: VideoBatch, text: TextBatch, infos: List[Dict],
         [i.get("letterbox", [cw / i["ori_size"][1], ch / i["ori_size"][0], 0.0, 0.0])
          for i in infos], np.float32)
     lb = lb / np.array([cw, ch, cw, ch], np.float32)
-    return fwd(video, text, ori.to(dev), torch.from_numpy(lb).to(dev))
+    with trace.sync("forward.sizes"):
+        ori, lb = ori.to(dev), torch.from_numpy(lb).to(dev)
+    return fwd(video, text, ori, lb)
 
 
 def convert_outputs(packed_dev, span_dev, infos: List[Dict], gt_actioness: np.ndarray):
     """Fetch a dispatched pass and convert it to per-video dicts."""
-    packed = packed_dev.cpu().numpy()
-    span = span_dev.cpu().numpy()
+    with trace.sync("convert_outputs"):
+        packed = packed_dev.cpu().numpy()
+        span = span_dev.cpu().numpy()
     boxes = packed[..., :4]
     att = packed[..., 4]
     select = packed[..., 5] > 0.5

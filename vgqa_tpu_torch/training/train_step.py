@@ -24,6 +24,10 @@ replaced by its mean over the group (``parallel.distributed.
 average_gradients``), so the clip sees the global norm and every rank
 applies the same update: the ranks' parameters, moments and EMA stay
 bit-equal.
+
+Traced (``utils/trace``): ``vgqa.train.step`` per step, with the children
+``vgqa.train.forward``, ``.loss``, ``.backward``, ``.allreduce`` (in a
+process group only), ``.optimizer`` (clip and AdamW) and ``.ema``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from torch import nn
 from ..ops.dropout import DropoutRng
 from ..ops.kernels.dtypes import check_kernel_dtype
 from ..parallel import distributed
+from ..utils import trace
 from ..utils.containers import TextBatch, VideoBatch, normalize_uint8_video
 from .optimizer import GroupedAdamW, update_ema
 
@@ -116,21 +121,27 @@ def make_train_step(loss_fn, weight_dict: Dict[str, float],
                          rank=distributed.get_rank())
         for p in state.model.parameters():
             p.grad = None
-        out = torch.func.functional_call(state.model, params_for_forward(state),
-                                         (video, text), {"train": True, "rng": rng})
-        losses = loss_fn(_upcast(out), targets)
-        total = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
-        total.backward()
+        with trace.span("vgqa.train.forward"):
+            out = torch.func.functional_call(state.model, params_for_forward(state),
+                                             (video, text), {"train": True, "rng": rng})
+        with trace.span("vgqa.train.loss"):
+            losses = loss_fn(_upcast(out), targets)
+            total = sum(losses[k] * weight_dict[k] for k in losses if k in weight_dict)
+        with trace.span("vgqa.train.backward"):
+            total.backward()
         distributed.average_gradients(p for p in state.model.parameters() if p.requires_grad)
         return total.detach(), {k: v.detach() for k, v in losses.items()}
 
     def step_fn(state: TrainState, video: VideoBatch, text: TextBatch, targets: Dict,
                 seed: int) -> Dict[str, torch.Tensor]:
-        total, losses = loss_and_grads(state, video, text, targets, seed)
-        grad_norm = state.optimizer.step(state.step)
-        if state.ema is not None and ema_decay is not None:
-            update_ema(dict(state.model.named_parameters()), state.ema, ema_decay)
-        state.step += 1
+        with trace.span("vgqa.train.step"):
+            total, losses = loss_and_grads(state, video, text, targets, seed)
+            with trace.span("vgqa.train.optimizer"):
+                grad_norm = state.optimizer.step(state.step)
+            if state.ema is not None and ema_decay is not None:
+                with trace.span("vgqa.train.ema"):
+                    update_ema(dict(state.model.named_parameters()), state.ema, ema_decay)
+            state.step += 1
         return {"loss": total, "grad_norm": grad_norm, **losses}
 
     step_fn.loss_and_grads = loss_and_grads

@@ -7,10 +7,13 @@ the ``last_checkpoint`` tag under ``OUTPUT_DIR``, or else warm-starts from
 ``tools/export_torch_checkpoint.py`` writes). ``fit()`` trains over the
 VidSTG loader from the resumed iteration: batches arrive in pinned host
 memory and are uploaded without blocking, the device's metrics are read
-only every 50 steps and at the last, ``model_{step}`` / ``model_final``
-are saved with their params twins ``*_params`` (the EMA weights when
-``MODEL.EMA`` is on), and ``validate`` runs ``do_eval`` on the test split
-every ``SOLVER.VAL_PERIOD`` steps when ``SOLVER.TO_VAL`` holds.
+only every 50 steps and at the last (the log's ``time`` and eta come from
+the wall time between those synced reads), ``model_{step}`` /
+``model_final`` are saved with their params twins ``*_params`` (the EMA
+weights when ``MODEL.EMA`` is on), and ``validate`` runs ``do_eval`` on the
+test split every ``SOLVER.VAL_PERIOD`` steps when ``SOLVER.TO_VAL`` holds.
+Traced (``utils/trace``): ``vgqa.train.log`` around each synced read and its
+logging; the step's spans are ``training/train_step.py``'s.
 ``fit(batches, steps)`` runs the same loop over given batches instead and
 reads the metrics of every step. ``setup`` sets the port's float32 policy
 (``utils/device.apply_precision_policy``: TF32 off in cuBLAS and cuDNN).
@@ -53,6 +56,7 @@ from ..models.init_weights import init_weights
 from ..models.loss import build_loss, build_weight_dict
 from ..parallel.distributed import is_main_process, reduce_mean
 from ..parallel.mesh import build_mesh
+from ..utils import trace
 from ..utils.device import apply_precision_policy, resolve_device
 from ..utils.metrics_logger import MetricLogger
 from ..utils.tensorboard import SummaryWriter
@@ -148,6 +152,7 @@ class Trainer:
         writer = SummaryWriter(c.TENSORBOARD_DIR if is_main_process() else "")
         logged = []
         start_time = before = time.perf_counter()
+        synced, synced_step = start_time, start_iter
         for batch in source:
             data_time = time.perf_counter() - before
             step = batch["iteration"] + 1
@@ -156,19 +161,25 @@ class Trainer:
             del b
             batch_time = time.perf_counter() - before
             before = time.perf_counter()
-            meter.update(time=batch_time, data=data_time)
+            meter.update(data=data_time)
             self.step_log.append((step, data_time, batch_time))
             if step % period == 0 or step == last:
-                host = reduce_mean(metrics)   # the host sync (the group's mean under dp)
-                logged.append({"step": step, **host})
-                verbose = {k: v for k, v in host.items()
-                           if k in self.weight_dict and not k[-1].isdigit()}
-                meter.update(loss=host["loss"], **verbose)
-                eta = meter.time.global_avg * (last - step)
-                self.logger.info(f"eta: {datetime.timedelta(seconds=int(eta))}  "
-                                 f"iter {step} / {last}  {meter}")
-                for k, v in host.items():
-                    writer.add_scalar(k, v, step)
+                with trace.span("vgqa.train.log"):
+                    host = reduce_mean(metrics)   # the host sync (the group's mean under dp)
+                    # the steps' time: wall time between two synced reads
+                    now = time.perf_counter()
+                    meter.meters["time"].update((now - synced) / (step - synced_step),
+                                                step - synced_step)
+                    synced, synced_step = now, step
+                    logged.append({"step": step, **host})
+                    verbose = {k: v for k, v in host.items()
+                               if k in self.weight_dict and not k[-1].isdigit()}
+                    meter.update(loss=host["loss"], **verbose)
+                    eta = meter.time.global_avg * (last - step)
+                    self.logger.info(f"eta: {datetime.timedelta(seconds=int(eta))}  "
+                                     f"iter {step} / {last}  {meter}")
+                    for k, v in host.items():
+                        writer.add_scalar(k, v, step)
             if self.ckpt is not None and step % c.SOLVER.CHECKPOINT_PERIOD == 0:
                 self.save(f"model_{step:06d}")
             if c.SOLVER.TO_VAL and step % c.SOLVER.VAL_PERIOD == 0:

@@ -9,6 +9,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 import torch
 
+from . import trace
+
 
 @dataclass(frozen=True)
 class VideoBatch:
@@ -41,8 +43,9 @@ def normalize_uint8_video(
     would normalize them to -mean/std, so both masks re-zero them here."""
     mean, std = pixel_stats or ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
     dev = video.frames.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(std, dtype=torch.float32, device=dev)
+    with trace.sync("normalize.stats"):
+        mean = torch.tensor(mean, dtype=torch.float32, device=dev)
+        std = torch.tensor(std, dtype=torch.float32, device=dev)
     f = (video.frames.float() / 255.0 - mean) / std
     valid = (video.pixel_mask[:, None, :, :, None]
              & video.time_mask[:, :, None, None, None])
