@@ -2303,6 +2303,7 @@ def serve_qa(dev, card):
     from vgqa_tpu_torch.qa import LLMConfig, QAEngine, ViTConfig
     from vgqa_tpu_torch.qa.engine import GenerationConfig
     from vgqa_tpu_torch.qa.quant import linear_forms, quantize_llm_params_int4
+    from vgqa_tpu_torch.utils import trace
 
     llm_cfg, vit_cfg = LLMConfig.internlm2_5_7b(), ViTConfig.internvit_300m()
     t0 = time.perf_counter()
@@ -2444,18 +2445,27 @@ def serve_qa(dev, card):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    answers = eng.chat_batch([(tiles, question, npl), (tiles2, "Who is in the video?", npl)],
-                             gen=greedy)
+    with trace.tracing():
+        answers = eng.chat_batch([(tiles, question, npl), (tiles2, "Who is in the video?", npl)],
+                                 gen=greedy)
+        decode = trace.snapshot()["counters"]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the host calls K6's wrapper in every eager forward and in the capture
+    # of the decode graph, whose replays launch it without the host
+    host_forwards = (decode["qa.decode.forwards"] - decode.get("qa.decode.graph_replays", 0)
+                     + decode.get("qa.decode.graph_captures", 0))
+    if decode["qa.decode.forwards"] != greedy.max_new_tokens - 1:
+        raise AssertionError(f"chat_batch decode counters {decode}")
     want = dict(zero, flash_mha=2 * per_chat["flash_mha"],
                 flash_gqa_causal=2 * per_chat["flash_gqa_causal"],
-                int4_matmul=7 * llm_cfg.num_layers * (greedy.max_new_tokens - 1))
+                int4_matmul=7 * llm_cfg.num_layers * host_forwards)
     print(f"QA chat_batch of 2 [int4 greedy]: {dt:.3f} s, {2 * greedy.max_new_tokens / dt:.2f} tok/s "
           f"aggregate end to end, peak {peak:.2f} GiB  [{card}]")
-    print(f"  launches {launches}; answers {[a[:30] for a in answers]!r}")
+    print(f"  launches {launches}; decode counters {decode}; answers "
+          f"{[a[:30] for a in answers]!r}")
     if not (len(answers) == 2 and all(isinstance(a, str) for a in answers)):
         raise AssertionError(f"chat_batch answers {answers!r}")
     if launches != want:

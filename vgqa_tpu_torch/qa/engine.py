@@ -5,10 +5,11 @@ Counterpart of ``vgqa_tpu/qa/engine.py``. The prompt (text ids with
 IMG_CONTEXT spans) is embedded and the span positions are overwritten with
 vision-tower tokens; prefill runs one causal pass over the padded prompt,
 or, for long prompts, ``PREFILL_CHUNK``-sized chunks against the cache;
-decode is a plain Python loop of one-token forwards (JAX runs it as one
-``while_loop`` program; CUDA graphs are later work) with the same
-semantics: a ``[max_new_tokens]`` buffer with -1 past the stop, a stop at
-position ``S - 1``, and the nucleus cutoff of the JAX sampler.
+decode is a Python loop of one-token forwards (JAX runs it as one
+``while_loop`` program) with the same semantics: a ``[max_new_tokens]``
+buffer with -1 past the stop, a stop at position ``S - 1``, and the nucleus
+cutoff of the JAX sampler. On the card the lockstep batch's forward is a
+CUDA graph replay (``_LockstepDecode``); the sampler stays eager.
 
 The JAX engine's environment switches become constructor keywords with
 the same defaults: ``kv_int8`` (int8 KV cache for decode, filled by one
@@ -24,6 +25,8 @@ decode (``VGQA_STACKED_KV``, ``VGQA_SCAN_DECODE``).
 
 from __future__ import annotations
 
+import collections
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -32,8 +35,8 @@ import torch
 
 from ..utils import trace
 from ..utils.device import resolve_device
-from .llm import (LLM, LLMConfig, RMSNorm, TokenEmbedding, init_kv_cache, kv_seq_len,
-                  load_llm_state, quantize_kv_cache)
+from .llm import (LLM, LLMConfig, RMSNorm, TokenEmbedding, init_kv_cache, kv_cache_quantized,
+                  kv_seq_len, load_llm_state, quantize_kv_cache)
 from .quant import DenseLinear
 from .vit import ViTConfig, VisionTower
 
@@ -137,8 +140,96 @@ def init_qa_modules(modules: Sequence[torch.nn.Module], generator: torch.Generat
                     p.normal_(0.0, 0.02, generator=generator)
 
 
+class _LockstepDecode:
+    """The lockstep batch's decode step for one key (B, S, cache form,
+    weights, dtype, device): the batch cache, kept between calls, and the
+    token and position buffers [B] that the step reads. ``step(decode,
+    token)`` runs ``decode(cache, token, position)`` (the engine's
+    ``_decode_impl``) for every row's token at its position, advances the
+    positions in place and returns the next logits [B, V].
+
+    On the card the first step runs ``decode`` eagerly on a side stream,
+    then captures the same call as a CUDA graph (capture launches nothing,
+    so the cache stays as the eager step left it); every later step is a
+    replay whose logits land in the graph's own buffer. A capture that
+    raises leaves the key eager for good. Counters: ``qa.decode.forwards``
+    per step, ``qa.decode.graph_replays`` per replay,
+    ``qa.decode.graph_captures`` and ``qa.decode.graph_failures`` per
+    capture tried."""
+
+    def __init__(self, cache):
+        self.cache = cache
+        buf = cache[0]["kq"] if kv_cache_quantized(cache) else cache[0][0]
+        self.token = torch.zeros(buf.shape[0], dtype=torch.int64, device=buf.device)
+        self.position = torch.zeros_like(self.token)
+        self.graph = self.logits = None
+        self.capture = buf.is_cuda
+
+    def step(self, decode, token: torch.Tensor) -> torch.Tensor:
+        self.token.copy_(token)
+        trace.count("qa.decode.forwards")
+        if self.graph is not None:
+            self.graph.replay()
+            trace.count("qa.decode.graph_replays")
+            logits = self.logits
+        elif self.capture:
+            logits = self._eager_then_capture(decode)
+        else:
+            logits = decode(self.cache, self.token, self.position)[0]
+        self.position.add_(1)
+        return logits
+
+    def _eager_then_capture(self, decode) -> torch.Tensor:
+        self.capture = False
+        current = torch.cuda.current_stream(self.token.device)
+        side = torch.cuda.Stream(self.token.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            logits = decode(self.cache, self.token, self.position)[0]
+        current.wait_stream(side)
+        logits.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = decode(self.cache, self.token, self.position)[0]
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            trace.count("qa.decode.graph_failures")
+            return logits
+        trace.count("qa.decode.graph_captures")
+        self.graph, self.logits = graph, out
+        return logits
+
+
+def _probe_done(done: torch.Tensor, pending):
+    """``(finished, pending)``: whether every row had stopped by the
+    previous probe, and this probe (``done.all()`` copied into pinned host
+    memory without a wait, and its event). On the card the one wait is on
+    the previous probe's event, a probe interval behind the host; on the
+    CPU ``done`` is read directly."""
+    if not done.is_cuda:
+        with trace.sync("qa.decode.done"):
+            return bool(done.all()), None
+    if pending is not None:
+        host, event = pending
+        with trace.sync("qa.decode.done"):
+            event.synchronize()
+        if bool(host):
+            return True, None
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(done.all(), non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return False, (host, event)
+
+
 class QAEngine:
     PREFILL_CHUNK = 1024
+    DONE_EVERY = 8          # lockstep steps between reads of ``done`` when stop ids apply
+    KEPT_DECODE_KEYS = 2    # lockstep keys whose cache (and graph) stay allocated
 
     # the system message of the "internvl2_5" conversation template
     SYSTEM_PROMPT = (
@@ -190,6 +281,9 @@ class QAEngine:
         # decode products) or the JAX package's plain routes; the one flag
         # the modules are called with
         self.use_kernels = use_kernels
+        # chat_batch's decode steps by key, least recently used first
+        self._lockstep = collections.OrderedDict()
+        self._lockstep_lock = threading.Lock()
 
     @classmethod
     def init_random(cls, llm_cfg: LLMConfig, vit_cfg: ViTConfig, seed: int = 0,
@@ -215,6 +309,8 @@ class QAEngine:
         load_llm_state(self.llm, state_dict_from_jax(params["llm"]))
         self.embed.load_state_dict(state_dict_from_jax(params["embed"]))
         self.vision.load_state_dict(state_dict_from_jax(params["vision"]))
+        with self._lockstep_lock:
+            self._lockstep.clear()
         return self
 
     # -- prefill / decode -----------------------------------------------------
@@ -321,6 +417,7 @@ class QAEngine:
             out.append(next_id)
             if t + 1 == gen.max_new_tokens:
                 break
+            trace.count("qa.decode.forwards")
             logits, cache = self._decode_impl(cache, next_id.reshape(1), position)
             position += 1
         trace.count("qa.decode_steps", steps)
@@ -520,7 +617,8 @@ class QAEngine:
 
         ``requests``: ``(tiles, question)`` or ``(tiles, question,
         num_patches_list)`` tuples. Vision and prefill run per request, each
-        into its own row of a shared [B, ...] cache; then all rows decode
+        into its own row of a [B, ...] batch cache that the engine keeps per
+        key (``_lockstep_step``; one call at a time); then all rows decode
         together, each at its own position, with its own ``max_new_tokens``,
         temperature, top-p and generator (``generators[b]``, default seeded
         ``b``), so a row draws what a solo chat with that generator draws.
@@ -530,7 +628,8 @@ class QAEngine:
         per request (prefill with the copy of its row into the batch cache)
         under the request's id, ``rids[b]`` (by default request ``b`` of the
         coalescer's batch), ``vgqa.qa.decode`` around the lockstep loop,
-        whose steps add to ``qa.decode_steps``."""
+        whose steps add to ``qa.decode_steps`` (and its forwards to the
+        counters of ``_LockstepDecode``)."""
         if gens is not None:
             if len(gens) != len(requests):
                 raise ValueError(f"{len(gens)} generation configs for {len(requests)} requests")
@@ -561,31 +660,65 @@ class QAEngine:
         Lp, chunked = self._plan_prefill(max(p[3] for p in prepped))
         max_new = max(g.max_new_tokens for g in gens)
         max_total = min(self.max_seq_len, Lp + max_new)
-        B = len(prepped)
-        batch_cache = init_kv_cache(self.llm_cfg, B, max_total, self.dtype,
-                                    quant="int8" if self.kv_int8 else None, device=self.device)
-        first = []
-        for i, (vision_tokens, ids, img_positions, length) in enumerate(prepped):
-            with trace.span("vgqa.qa.prefill", rid=rids[i]):
-                embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
-                logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
-                for dst, src in zip(batch_cache, cache):            # row i, in place
-                    pairs = dst.items() if isinstance(dst, dict) else enumerate(dst)
-                    for key, buf in pairs:
-                        buf[i:i + 1].copy_(src[key])
-            del cache
-            first.append(logits)
+        with self._lockstep_lock:
+            step = self._lockstep_step(len(prepped), max_total)
+            first = []
+            for i, (vision_tokens, ids, img_positions, length) in enumerate(prepped):
+                with trace.span("vgqa.qa.prefill", rid=rids[i]):
+                    embeds = self._embed_prompt(ids, img_positions, vision_tokens, Lp)
+                    logits, cache = self._prefill(embeds, length, Lp, chunked, max_total)
+                    for dst, src in zip(step.cache, cache):           # row i, whole, in place
+                        pairs = dst.items() if isinstance(dst, dict) else enumerate(dst)
+                        for key, buf in pairs:
+                            buf[i:i + 1].copy_(src[key])
+                del cache
+                first.append(logits)
 
-        with trace.span("vgqa.qa.decode"):
-            tokens = self._generate_batch(batch_cache, torch.cat(first, 0),
-                                          [p[3] for p in prepped], gens, generators)
+            with trace.span("vgqa.qa.decode"):
+                tokens = self._generate_batch(step, torch.cat(first, 0),
+                                              [p[3] for p in prepped], gens, generators)
         return [self.tokenizer.decode([t for t in row if t >= 0]) for row in tokens]
 
-    def _generate_batch(self, cache, first_logits, lengths: List[int],
+    def _lockstep_step(self, B: int, S: int) -> _LockstepDecode:
+        """The decode step of the key the engine observes: batch ``B``,
+        capacity ``S``, the cache form, the LLM's and embedding's tensors
+        (names, dtypes and addresses: the weight form, and the memory a
+        graph reads), dtype and device. The ``KEPT_DECODE_KEYS`` most
+        recent keys stay allocated; an older one is dropped with its cache
+        and graph before a new one allocates."""
+        weights = tuple((n, t.dtype, t.data_ptr()) for mod in (self.llm, self.embed)
+                        for n, t in (*mod.named_parameters(), *mod.named_buffers()))
+        key = (B, S, self.kv_int8, weights, self.dtype, self.device)
+        step = self._lockstep.pop(key, None)
+        if step is None:
+            while len(self._lockstep) >= self.KEPT_DECODE_KEYS:
+                self._lockstep.popitem(last=False)
+            cache = init_kv_cache(self.llm_cfg, B, S, self.dtype,
+                                  quant="int8" if self.kv_int8 else None, device=self.device)
+            step = _LockstepDecode(cache)
+        self._lockstep[key] = step
+        return step
+
+    def _host_values(self, values, dtype) -> torch.Tensor:
+        """A short host list on the device without a wait (through pinned
+        memory on the card)."""
+        t = torch.tensor(values, dtype=dtype)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _generate_batch(self, step: _LockstepDecode, first_logits, lengths: List[int],
                         gens: List[GenerationConfig], generators) -> List[List[int]]:
         """The lockstep loop: a finished row keeps riding the batch (emitting
-        -1) until every row has stopped or the longest budget is spent."""
-        S = kv_seq_len(cache)
+        -1) until every row has stopped or the longest budget is spent.
+
+        Row b stops at the latest at step ``min(S - 1 - lengths[b],
+        max_new_tokens_b)``, which the host knows, so without stop ids
+        (every row ``ignore_eos``) the loop reads nothing from the device
+        before the tokens. With stop ids it reads ``done`` every
+        ``DONE_EVERY`` steps (``_probe_done``); a step run past every row's
+        stop emits -1 only, so the answers do not depend on when it reads."""
+        S = kv_seq_len(step.cache)
         B = len(gens)
         dev = self.device
         max_new = max(g.max_new_tokens for g in gens)
@@ -593,16 +726,19 @@ class QAEngine:
         sampled = [bool(g.do_sample and g.temperature > 0) for g in gens]
         if any(sampled) and generators is None:
             generators = [torch.Generator(device=dev).manual_seed(b) for b in range(B)]
-        with trace.sync("qa.decode.inputs"):
-            stop_t = torch.tensor(stops or [-1], device=dev)
-            limits = torch.tensor([g.max_new_tokens for g in gens], device=dev)
-            temps = torch.tensor([g.temperature for g in gens], device=dev)
-            top_ps = torch.tensor([g.top_p for g in gens], device=dev)
-            position = torch.tensor(lengths, device=dev)
+        last = min(max_new - 1, max(min(max(S - 1 - n, 0), g.max_new_tokens)
+                                    for n, g in zip(lengths, gens)))
+        ints = self._host_values([*lengths, *(g.max_new_tokens for g in gens), *(stops or [-1])],
+                                 torch.int64)
+        floats = self._host_values([g.temperature for g in gens] + [g.top_p for g in gens],
+                                   torch.float32)
+        step.position.copy_(ints[:B])
+        limits, stop_t = ints[B:2 * B], ints[2 * B:]
+        temps, top_ps = floats[:B], floats[B:]
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         tokens = torch.full((max_new, B), -1, dtype=torch.int64, device=dev)
-        logits, steps = first_logits, 0
-        for t in range(max_new):
+        logits, steps, probe = first_logits, 0, None
+        for t in range(last + 1):
             steps = t + 1
             next_id = logits.argmax(-1)
             if any(sampled):
@@ -610,17 +746,16 @@ class QAEngine:
                 draws = [_draw(masked[b], generators[b]) if sampled[b] else next_id[b]
                          for b in range(B)]
                 next_id = torch.stack(draws)
-            is_stop = torch.isin(next_id, stop_t) | (position >= S - 1) | (t >= limits)
+            is_stop = torch.isin(next_id, stop_t) | (step.position >= S - 1) | (t >= limits)
             tokens[t] = torch.where(done | is_stop, -1, next_id)
             done = done | is_stop
-            if t + 1 == max_new:
+            if t == last:
                 break
-            with trace.sync("qa.decode.done"):
-                finished = bool(done.all())
-            if finished:
-                break
-            logits, cache = self._decode_impl(cache, tokens[t].clone(), position)
-            position = position + 1
+            if stops and (t + 1) % self.DONE_EVERY == 0:
+                finished, probe = _probe_done(done, probe)
+                if finished:
+                    break
+            logits = step.step(self._decode_impl, tokens[t])
         trace.count("qa.decode_steps", steps)
         with trace.sync("qa.decode.tokens"):
             return tokens.t().tolist()
